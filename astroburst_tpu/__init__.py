@@ -1,4 +1,4 @@
-"""astroburst_tpu — TPU-native astronomical image processing framework.
+"""astroburst_tpu — accelerator-native astronomical image processing.
 
 A ground-up JAX/XLA rebuild of the capabilities of AstroBurst
 (reference: samuelkriegerbonini-dev/AstroBurst, a Rust/Tauri desktop app):
@@ -10,7 +10,7 @@ deconvolution, wavelet denoising, background extraction, WCS/plate
 solving, SPCC color calibration, IFU cube spectroscopy and synthetic
 data generation.
 
-Everything pixel-shaped runs on TPU via jit-compiled JAX; the public
+Everything pixel-shaped runs on the GPU via jit-compiled JAX; the public
 command surface lives in :mod:`astroburst_tpu.api` and mirrors the
 reference's 60 IPC commands (reference: src-tauri/src/lib.rs:116-177).
 """

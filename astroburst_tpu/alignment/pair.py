@@ -49,7 +49,7 @@ def align_pair(reference, target, method: AlignMethod, rows: int,
                cols: int, ref_stars=None) -> AlignPairResult:
     if method == AlignMethod.AFFINE:
         ref_shape = (reference.shape[0], reference.shape[1])
-        if jax.default_backend() == "tpu" and (rows, cols) == ref_shape:
+        if (rows, cols) == ref_shape:
             # one device program, one host fetch (fused_chain);
             # ref_stars (fused_chain.detect_ref_stars) skips
             # re-detecting a shared reference channel. The fused chain

@@ -6,7 +6,7 @@ peak + SNR confidence → circular unwrap + 3-point quadratic subpixel
 (math/subpixel.rs:84), coarse pass capped at 512², refinement on 512²
 centered crops.
 
-TPU re-design: the whole coarse-to-fine pipeline is one jit per input
+Design: the whole coarse-to-fine pipeline is one jit per input
 shape — matmul FFTs (ops.fft), box-mean coarse downsample, dynamic-slice
 crops with clamped starts (the reference shrinks edge crops and skips
 refinement on mismatch; we clamp so the refine always runs at 512²).
@@ -16,11 +16,9 @@ Batched use (vmap over a frame axis) is supported by `correlate_single`.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from astroburst_tpu.ops import fft as F
 from astroburst_tpu.ops.window import hann_periodic
@@ -45,10 +43,8 @@ def is_low_confidence(confidence: float) -> bool:
 def _is_constant_or_zero(img):
     """finite_count < 16 or range < 1e-10 (phase_correlation.rs:143-161).
 
-    One variadic ``lax.reduce`` carries count, min and max together —
-    three separate jnp reductions lowered to three unfused passes over
-    the full-resolution stack (~2.4 ms of the headline align stage at
-    15×16 Mpx; the fused form reads the 750 MB once)."""
+    One variadic ``lax.reduce`` carries count, min and max together, so
+    the full-resolution stack is read once for all three."""
     finite = jnp.isfinite(img)
     dims = (img.ndim - 2, img.ndim - 1)
     mn, mx, cnt = jax.lax.reduce(
@@ -155,9 +151,6 @@ def correlate_single(a, b):
     the inputs are real and the cross-power of two conjugate-symmetric
     spectra is conjugate-symmetric, so its inverse is the real
     correlation surface — the redundant spectrum half never exists.
-    Measured 10.0 vs 12.0 ms for the headline align stage (this is
-    NOT the r2 pair-packing experiment, which lost to its slice/flip
-    passes; the half-spectrum form has none).
     """
     rows, cols = a.shape[-2], a.shape[-1]
     fft_rows = F.next_power_of_two(rows)
@@ -221,16 +214,6 @@ def correlate_two(a, b1, b2):
             jnp.where(bad2, zero, conf2))
 
 
-def _box_matrix(ds: int, box: int, n: int):
-    """[ds, n] matrix averaging each length-`box` run, built on device
-    (iota compares; a host-built dense constant embeds ~10 MB per
-    plane shape in the program)."""
-    i = jnp.arange(ds, dtype=jnp.int32)[:, None]
-    j = jnp.arange(n, dtype=jnp.int32)[None, :]
-    hit = (j >= i * box) & (j < (i + 1) * box)
-    return hit.astype(jnp.float32) * (1.0 / box)
-
-
 def _coarse_box_downsample(img, max_dim: int):
     """Integer box-mean downsample for the coarse pass.
 
@@ -238,80 +221,44 @@ def _coarse_box_downsample(img, max_dim: int):
     (phase_correlation.rs:10, sampling.rs area path). The coarse
     displacement only seeds the 512² refinement crop, so an integer
     box mean over the largest divisible region is equivalent for that
-    purpose (exact fractional coverage would add ~10× the FLOPs for
-    no seeding benefit). Returns (ds, box_y, box_x), ds ≤ max_dim.
-
-    Implementation: banded box-MATRIX matmuls. Measured A/B at 15×16
-    Mpx: matmul 8.2 ms vs 19.3 ms for `by+bx` shifted index-vector
-    takes — stride-12 row gathers relayout across sublane tiles (only
-    small-stride takes are fast), while the mostly-zero matmul rides
-    the MXU. The 15.8 GFLOP/frame cost_analysis reports is cheap
-    FLOPs, not time. Contract the minor (lane) axis first — it reads
-    the plane once in its native layout; a single einsum picks an
-    order that relayouts the full plane.
-
-    MEASURED DEAD END (r4, rhyming with the r2 stride-take note):
-    row-subsampling via a stride-4 index-vector take before the
-    matmuls is SLOWER (10.2 vs 8.8 ms at 15×12.5 Mpx) — strided row
-    gathers relayout across sublane tiles; only near-contiguous takes
-    are fast, and a dense matmul reads every operand byte so zero
-    weights save nothing. The full-stack read is this pass's floor."""
+    purpose. A reshape and a mean in f32: XLA fuses it into one read of
+    the plane. Returns (ds, box_y, box_x), ds ≤ max_dim."""
     rows, cols = img.shape[-2], img.shape[-1]
     by = -(-rows // max_dim)
     bx = -(-cols // max_dim)
     ds_r = rows // by
     ds_c = cols // bx
-    # f32 inputs at DEFAULT precision: the MXU runs one bf16 pass with
-    # f32 accumulate — same accuracy as an explicit bf16 cast, but the
-    # cast pass over the full stack never materializes (profiled
-    # 8.4 → 4.6 ms for the 15-frame coarse stage; the coarse surface
-    # only seeds the refine crop, so bf16 products are plenty)
-    mr = _box_matrix(ds_r, by, rows)
-    mc = _box_matrix(ds_c, bx, cols)
-    tmp = jax.lax.dot_general(img, mc.T, (((img.ndim - 1,), (0,)), ((), ())),
-                              preferred_element_type=jnp.float32,
-                              precision=jax.lax.Precision.DEFAULT)
-    ds = jnp.einsum("rh,...hc->...rc", mr, tmp,
-                    precision=jax.lax.Precision.DEFAULT)
-    return ds, by, bx
+    lead = img.shape[:-2]
+    boxes = img[..., :ds_r * by, :ds_c * bx].reshape(
+        *lead, ds_r, by, ds_c, bx)
+    return jnp.mean(boxes, axis=(-3, -1)), by, bx
+
+
+def _crop_origin_static(rows: int, cols: int, size: int):
+    """Origin of the reference's centered refine crop."""
+    return max(rows // 2 - size // 2, 0), max(cols // 2 - size // 2, 0)
 
 
 def _centered_crop_static(img, size: int):
     rows, cols = img.shape[-2], img.shape[-1]
-    # tile-aligned starts (8 sublanes / 128 lanes): misaligned slices
-    # of a tiled plane run ~10× slower; the origin shift is exact —
-    # the refine result is corrected by the crop origins
-    y0 = (max(rows // 2 - size // 2, 0) // 8) * 8
-    x0 = (max(cols // 2 - size // 2, 0) // 128) * 128
+    y0, x0 = _crop_origin_static(rows, cols, size)
     return img[..., y0:y0 + min(size, rows), x0:x0 + min(size, cols)]
 
 
-def _crop_origin_static(rows: int, cols: int, size: int):
-    return ((max(rows // 2 - size // 2, 0) // 8) * 8,
-            (max(cols // 2 - size // 2, 0) // 128) * 128)
-
-
 def _refine_origin(cy, cx, rows: int, cols: int, size: int):
-    """Tile-aligned origin for the dynamic refine crop, rounded to the
-    NEAREST (8, 128) multiple (not floored): the static ref-crop origin
-    is itself a tile multiple, so nearest-rounding keeps the two crops
-    mutually aligned to within (±4, ±64) px instead of up to (+7, +127)
-    — preserving Hann-window overlap for shifts near the clamp bounds.
-    The upper clamp is pre-floored to a tile multiple so clamped
-    origins stay aligned (misaligned slices of a tiled plane run ~10×
-    slower)."""
-    y0 = ((cy.astype(jnp.int32) - size // 2 + 4) // 8) * 8
-    x0 = ((cx.astype(jnp.int32) - size // 2 + 64) // 128) * 128
-    y0 = jnp.clip(y0, 0, (max(rows - size, 0) // 8) * 8)
-    x0 = jnp.clip(x0, 0, (max(cols - size, 0) // 128) * 128)
+    """Origin of the target's refine crop: centered on (cy, cx) and
+    clamped so the crop stays inside the plane (the reference shrinks
+    edge crops instead; the clamp keeps the refine at size²). The
+    refine result is corrected by the two crop origins."""
+    y0 = jnp.clip(cy.astype(jnp.int32) - size // 2, 0, max(rows - size, 0))
+    x0 = jnp.clip(cx.astype(jnp.int32) - size // 2, 0, max(cols - size, 0))
     return y0, x0
 
 
 def _dynamic_crop(img, cy, cx, size: int):
     rows, cols = img.shape[-2], img.shape[-1]
-    # tile-aligned starts: measured 3.3 ms → sub-ms for 15 crops of a
-    # 16 Mpx plane; the origin shift is reported back via the same
-    # clamped origin the caller computes (_refine_origin)
+    # the origin shift is reported back via the same clamped origin
+    # the caller computes (_refine_origin)
     y0, x0 = _refine_origin(cy, cx, rows, cols, size)
     return jax.lax.dynamic_slice(img, (y0, x0),
                                  (min(size, rows), min(size, cols)))
@@ -352,27 +299,11 @@ def _phase_correlate_traced(ref, tgt):
             jnp.where(bad, zero, rconf))
 
 
-def phase_correlate_stack_traced(ref, targets, crop_mode: str = "auto"):
+@jax.jit
+def phase_correlate_stack_traced(ref, targets):
     """Coarse-to-fine phase correlation of a [N, H, W] target stack
     against one reference. Returns (dys [N], dxs [N], confidences [N]).
-
-    ``crop_mode`` selects how the refine crops move: "dma" uses the
-    tile-aligned Pallas DMA kernel (ops/crop_kernel.py — the origins
-    are (8,128)-aligned by ``_refine_origin``, so the crops copy at
-    memcpy speed instead of XLA's ~45 GB/s tiled dynamic-slice);
-    "slice" keeps per-frame 3D ``dynamic_slice``s (the XLA reference
-    path; also the fallback when the crop size is unaligned);
-    "interpret" is the DMA path in Pallas interpret mode (CPU tests);
-    "auto" picks "dma" on TPU, "slice" elsewhere.
-    """
-    if crop_mode == "auto":
-        crop_mode = ("dma" if jax.default_backend() == "tpu"
-                     else "slice")
-    return _phase_correlate_stack_impl(ref, targets, crop_mode)
-
-
-@partial(jax.jit, static_argnames=("crop_mode",))
-def _phase_correlate_stack_impl(ref, targets, crop_mode: str):
+    The refine crops are per-frame ``dynamic_slice``s."""
     n, rows, cols = targets.shape
     if rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM:
         dy, dx, conf = correlate_single(ref, targets)
@@ -395,15 +326,10 @@ def _phase_correlate_stack_impl(ref, targets, crop_mode: str):
                                     REFINE_CROP_SIZE)
     s_r = min(REFINE_CROP_SIZE, rows)
     s_c = min(REFINE_CROP_SIZE, cols)
-    if crop_mode != "slice" and s_r % 8 == 0 and s_c % 128 == 0:
-        from astroburst_tpu.ops.crop_kernel import gather_crops
-        crops = gather_crops(targets, tgt_y0, tgt_x0, s_r, s_c,
-                             interpret=(crop_mode == "interpret"))
-    else:
-        crops = jnp.concatenate([
-            jax.lax.dynamic_slice(targets, (jnp.int32(k), tgt_y0[k],
-                                            tgt_x0[k]), (1, s_r, s_c))
-            for k in range(n)])
+    crops = jnp.concatenate([
+        jax.lax.dynamic_slice(targets, (jnp.int32(k), tgt_y0[k],
+                                        tgt_x0[k]), (1, s_r, s_c))
+        for k in range(n)])
     ref_crop = _centered_crop_static(ref, REFINE_CROP_SIZE)
     ref_y0, ref_x0 = _crop_origin_static(rows, cols, REFINE_CROP_SIZE)
     rdy, rdx, rconf = correlate_single(ref_crop, crops)
@@ -411,100 +337,6 @@ def _phase_correlate_stack_impl(ref, targets, crop_mode: str):
     dx = (tgt_x0 - ref_x0).astype(jnp.float32) + rdx
 
     bad = _is_constant_or_zero(ref) | _is_constant_or_zero(targets)
-    zero = jnp.zeros_like(dy)
-    return (jnp.where(bad, zero, dy), jnp.where(bad, zero, dx),
-            jnp.where(bad, zero, rconf))
-
-
-def phase_correlate_stack_padded(stack, true_shape: tuple,
-                                 crop_mode: str = "auto",
-                                 interpret: bool = False):
-    """Coarse-to-fine phase correlation of frames 1..N-1 of a PADDED
-    [N, Hp, Wp] stack against frame 0, without ever materializing the
-    `stack[:, :h, :w]` view: the coarse box mean runs as a blockwise
-    Pallas kernel straight off the padded buffer
-    (alignment/coarse_kernel.py — one 800 MB HBM pass instead of the
-    matmul path's pass + intermediate + the ~750 MB view copy XLA
-    makes for non-fusing consumers), and the refine crops DMA from the
-    padded buffer with a frame offset. Returns (dys, dxs, confs) of
-    length N-1, identical semantics to
-    ``phase_correlate_stack_traced(stack[0,:h,:w], stack[1:,:h,:w])``
-    up to the coarse pass's bf16 input rounding (same product class as
-    the matmul path's DEFAULT precision; the coarse surface only seeds
-    the nearest-(8,128) refine crop origins).
-    """
-    if crop_mode == "auto":
-        crop_mode = ("dma" if jax.default_backend() == "tpu"
-                     else "slice")
-    from astroburst_tpu.alignment.coarse_kernel import plan
-    n, hp, wp = stack.shape
-    h, w = true_shape
-    use_pallas_coarse = ((h > COARSE_MAX_DIM or w > COARSE_MAX_DIM)
-                         and plan(n, hp, wp, h, w, COARSE_MAX_DIM)
-                         is not None)
-    return _phase_correlate_stack_padded_impl(
-        stack, true_shape, crop_mode, use_pallas_coarse, interpret)
-
-
-@partial(jax.jit, static_argnames=("true_shape", "crop_mode",
-                                   "use_pallas_coarse", "interpret"))
-def _phase_correlate_stack_padded_impl(stack, true_shape, crop_mode,
-                                       use_pallas_coarse, interpret):
-    n1 = stack.shape[0]
-    rows, cols = true_shape
-    view = stack[:, :rows, :cols]   # fuses into reductions/windowing
-    if rows <= COARSE_MAX_DIM and cols <= COARSE_MAX_DIM:
-        return _phase_correlate_stack_impl(view[0], view[1:], "slice")
-
-    bad_each = None
-    if use_pallas_coarse:
-        from astroburst_tpu.alignment.coarse_kernel import (
-            coarse_downsample_stack)
-        ds_all, by, bx, mn_f, mx_f, cnt_f = coarse_downsample_stack(
-            stack, true_shape, COARSE_MAX_DIM, interpret=interpret,
-            with_stats=True)
-        ref_ds, tgt_ds = ds_all[0], ds_all[1:]
-        # the _is_constant_or_zero gate (phase_correlation.rs:143-161)
-        # from the kernel's folded per-frame stats — no second
-        # full-stack read
-        bad_each = (cnt_f < 16) | (jnp.abs(mx_f - mn_f) < 1e-10)
-    else:
-        ref_ds, by, bx = _coarse_box_downsample(view[0], COARSE_MAX_DIM)
-        tgt_ds, _, _ = _coarse_box_downsample(view[1:], COARSE_MAX_DIM)
-    cdy, cdx, _ = correlate_single(ref_ds, tgt_ds)
-
-    ref_cy = rows // 2
-    ref_cx = cols // 2
-    tgt_cy = jnp.clip(jnp.round(ref_cy + cdy * by), 0,
-                      rows - 1).astype(jnp.int32)
-    tgt_cx = jnp.clip(jnp.round(ref_cx + cdx * bx), 0,
-                      cols - 1).astype(jnp.int32)
-    tgt_y0, tgt_x0 = _refine_origin(tgt_cy, tgt_cx, rows, cols,
-                                    REFINE_CROP_SIZE)
-    s_r = min(REFINE_CROP_SIZE, rows)
-    s_c = min(REFINE_CROP_SIZE, cols)
-    if crop_mode != "slice" and s_r % 8 == 0 and s_c % 128 == 0:
-        from astroburst_tpu.ops.crop_kernel import gather_crops
-        crops = gather_crops(stack, tgt_y0, tgt_x0, s_r, s_c,
-                             interpret=(crop_mode == "interpret"
-                                        or interpret),
-                             frame0=1)
-    else:
-        crops = jnp.concatenate([
-            jax.lax.dynamic_slice(view, (jnp.int32(k + 1), tgt_y0[k],
-                                         tgt_x0[k]), (1, s_r, s_c))
-            for k in range(n1 - 1)])
-    ref_crop = _centered_crop_static(view[0], REFINE_CROP_SIZE)
-    ref_y0, ref_x0 = _crop_origin_static(rows, cols, REFINE_CROP_SIZE)
-    rdy, rdx, rconf = correlate_single(ref_crop, crops)
-    dy = (tgt_y0 - ref_y0).astype(jnp.float32) + rdy
-    dx = (tgt_x0 - ref_x0).astype(jnp.float32) + rdx
-
-    if bad_each is not None:
-        bad = bad_each[0] | bad_each[1:]
-    else:
-        bad = (_is_constant_or_zero(view[0])
-               | _is_constant_or_zero(view[1:]))
     zero = jnp.zeros_like(dy)
     return (jnp.where(bad, zero, dy), jnp.where(bad, zero, dx),
             jnp.where(bad, zero, rconf))

@@ -1,25 +1,24 @@
-"""Shear-decomposed affine warp — the TPU-fast form.
+"""Shear-decomposed affine warp without 2D gathers.
 
 The reference warps with a per-pixel bicubic sampler
 (src-tauri/src/core/alignment/affine.rs:663-690 +
 src-tauri/src/core/imaging/sampling.rs:51-80 clamp_index).  A literal
-translation is an elementwise gather (~12 ns/px on this backend — 190 ms
-for a 16 Mpx plane).  This module reaches the same separable Catmull-Rom
-result with only TPU-fast primitives:
+translation is an elementwise 2D gather.  This module reaches the same
+separable Catmull-Rom result with rolls, selects and axis takes only:
 
 1. **Edge-replicate pad** along the resample axis (free-ish copy) —
    reproduces the reference's per-tap ``clamp_index`` semantics.
 2. **Bit-decomposed integer shear**: the rotation cross-term makes the
    source index 2D (``p·y + q·u + r``).  Split the per-column integer
    part ``s(u) = round(q·u)`` into bits; each bit is one
-   ``jnp.roll`` (free on TPU) + masked select (one elementwise pass).
+   ``jnp.roll`` + masked select (one elementwise pass).
    ``ceil(log2(span))`` passes replace a 2D gather.
 3. **Index-VECTOR takes**: after the shear the remaining integer index
    depends on the output row only — ``jnp.take`` along an axis with an
-   index *vector* is the fast gather form (~1-3 ms per 16 Mpx plane).
+   index *vector* moves whole rows or columns.
    Five takes cover the Catmull-Rom support for a sample point in
    [-1, 1) around the rounded base.
-4. **Dense VPU weights**: the fractional position splits as
+4. **Dense weights**: the fractional position splits as
    ``alpha(y) + rho(u)`` (outer sum), so the 5 tap weights are plain
    elementwise math that XLA fuses into the tap accumulation.
 

@@ -5,7 +5,15 @@ One function per reference IPC command, same names, same response keys
 src-tauri/src/cmd/). Returns plain dicts; binary responses return
 bytes. Commands are synchronous — batch/async orchestration is the
 caller's concern (the reference's spawn_blocking analog).
+
+Importing the api turns on the persistent compilation cache
+(runtime/compile_cache.py), so a second process reuses the first one's
+compiled programs.
 """
+
+from astroburst_tpu.runtime.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 from astroburst_tpu.api.io import (process_fits, process_fits_full,
                                    get_raw_pixels_preview)

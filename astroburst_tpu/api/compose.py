@@ -228,13 +228,10 @@ def blend_channels_cmd(channel_paths: Sequence[str],
 def _shared_ref_stars(ref_image, method, n_targets: int, rows: int,
                       cols: int):
     """Detect the reference channel's stars once when several targets
-    align to it on the TPU fused path (fused_chain.detect_ref_stars);
-    None otherwise — align_pair then behaves exactly as before."""
-    import jax
-
+    align to it on the fused path (fused_chain.detect_ref_stars); None
+    otherwise — align_pair then behaves exactly as before."""
     from astroburst_tpu.dtypes import AlignMethod
     if (n_targets < 2 or method != AlignMethod.AFFINE
-            or jax.default_backend() != "tpu"
             or min(rows, cols) < 16):
         return None
     from astroburst_tpu.alignment.fused_chain import detect_ref_stars

@@ -84,10 +84,9 @@ def save_preview_png(u8_plane, path: str,
                      max_dim: int = 4096) -> None:
     """Downsample (device) + save mono preview.
 
-    Prefer save_stf_preview_png when you have the f32 plane: a strided
-    slice of a u8 device array relayouts sub-byte lanes (measured 48 ms
-    vs 4 ms at 4096² on v5e); here it only costs when the plane
-    exceeds max_dim."""
+    Prefer save_stf_preview_png when you have the f32 plane: it
+    downsamples before quantizing; here the u8 plane is subsampled
+    only when it exceeds max_dim."""
     small = nearest_downsample(u8_plane, max_dim)
     save_gray_png(np.asarray(small), path)
 
@@ -212,8 +211,7 @@ def render_rgb_preview(r_stretched, g_stretched, b_stretched, path: str,
                        max_dim: int = 4096) -> None:
     """Assume planes already stretched to [0,1]; quantize + save
     (helpers.rs:204-262). The u8 quantize jit lives at module level —
-    a per-call closure re-compiled on every preview (a remote-compile
-    round trip per call on tunneled hosts)."""
+    a per-call closure would re-compile on every preview."""
     planes = [np.asarray(_to_u8(nearest_downsample(p, max_dim)))
               for p in (r_stretched, g_stretched, b_stretched)]
     save_rgb_png(planes[0], planes[1], planes[2], path)

@@ -81,8 +81,8 @@ def deconvolve_rl_cmd(path: str, output_dir: str,
                       use_estimated_psf: Optional[bool] = None,
                       fast_precision: Optional[bool] = None) -> dict:
     """cmd/processing/deconvolution.rs:15 — RL with progress events.
-    ``fast_precision`` is a TPU extension (3-pass-bf16 FFT
-    matmuls, ~6e-4 relative error); the default matches the reference's
+    ``fast_precision`` is an extension (reduced-precision tensor-core
+    FFT matmuls, see ops.fft); the default matches the reference's
     true-f32 arithmetic."""
     t0 = Timer()
     out_dir = resolve_output_dir(output_dir)

@@ -124,17 +124,12 @@ def stack(paths: Sequence[str], output_dir: str = "",
 
 
 def _png_b64(image, stats=None) -> str:
-    import io as _io
-
-    from PIL import Image
-
+    from astroburst_tpu.io.png import encode_png
     from astroburst_tpu.ops.ipc import nearest_downsample
     stats = stats or compute_image_stats(image)
     u8 = np.asarray(nearest_downsample(
         apply_stf_u8(image, auto_stf(stats), stats), 1024))
-    buf = _io.BytesIO()
-    Image.fromarray(u8, mode="L").save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode("ascii")
+    return base64.b64encode(encode_png(u8)).decode("ascii")
 
 
 def run_pipeline_cmd(channels: Sequence[dict], output_dir: str = "",

@@ -1,8 +1,7 @@
 """N-channel × 3 weight-matrix blending.
 
 Reference: src-tauri/src/core/compose/channel_blend.rs —
-Out_c = Σ_k W[k,c] · Channel_k. On TPU this is a single einsum
-contraction landing on the MXU.
+Out_c = Σ_k W[k,c] · Channel_k, one einsum contraction.
 """
 
 from __future__ import annotations

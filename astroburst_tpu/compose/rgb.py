@@ -130,13 +130,11 @@ def align_rgb_channels(r, g, b, rows: int, cols: int, method):
     n_aligns = (g is not None) + (b is not None)
     ref_stars = None
     if (n_aligns == 2 and method == AlignMethod.AFFINE
-            and jax.default_backend() == "tpu"
             and jnp.asarray(ref).shape == (rows, cols)
             and min(rows, cols) >= 16):
         # both aligns share the reference channel: detect its stars
-        # once (~18 ms of the ~48 ms fused chain per align) and run
-        # BOTH chains in one device program with one info fetch
-        # (fused_chain.align_and_warp_many)
+        # once and run BOTH chains in one device program with one info
+        # fetch (fused_chain.align_and_warp_many)
         from astroburst_tpu.alignment.fused_chain import (
             align_and_warp_many, detect_ref_stars)
         ref_stars = detect_ref_stars(ref)

@@ -239,9 +239,10 @@ class RLConfig:
     dering: bool = True
     dering_threshold: float = 0.1
     kernel_image: Optional[object] = None  # empirical PSF kernel (np array)
-    # TPU extension: run the FFT matmuls at the MXU's single-pass bf16
-    # precision (~6e-4 relative error per transform) instead of the
-    # 3-6-pass true-f32 default. Opt-in speed/accuracy trade.
+    # extension: run the FFT matmuls at DEFAULT precision — TF32 on the
+    # H100 — instead of the true-f32 HIGHEST default. Opt-in
+    # speed/accuracy trade: bench_ops.py reports the error it costs
+    # (max_rel_err_vs_f32).
     fast_precision: bool = False
 
 

@@ -4,8 +4,7 @@ Reference: src-tauri/src/core/imaging/curves.rs — levels
 (black/gamma/white), Fritsch–Carlson monotone cubic Hermite tone
 curves baked into a 4096-entry LUT.
 
-TPU design: elementwise gathers are slow here, so instead of a LUT
-lookup we quantize the input to the LUT grid (floor(v·4095)/4095) and
+Design: instead of a LUT gather we quantize the input to the LUT grid (floor(v·4095)/4095) and
 evaluate the Hermite spline directly — segment selection by masked
 sums over the ≤K control points. Bit-for-bit the same values the LUT
 would return, with zero gathers.

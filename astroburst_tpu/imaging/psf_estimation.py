@@ -6,7 +6,7 @@ edge-margin / center-distance), score-rank, take top-N; extract
 cutouts → subpixel re-center (bilinear) → normalize → average into an
 empirical kernel; moment FWHM/ellipticity per star; spread radius.
 
-TPU design: detection reuses analysis.star_detection; cutout
+Design: detection reuses analysis.star_detection; cutout
 extraction/recentering/averaging is one vmapped kernel over the
 selected ≤N stars.
 """

@@ -4,7 +4,7 @@ Reference: src-tauri/src/core/imaging/resample.rs — Catmull-Rom
 resampling at sy = ty·scale + (scale−1)/2, plus CRPIX/CD(or CDELT)
 updates (resample.rs:63-109).
 
-TPU design: the source coordinate depends separably on the output
+Design: the source coordinate depends separably on the output
 index, so the resize is 4 weighted axis-takes per axis with
 host-precomputed index/weight vectors — no gathers, no dense matrices.
 """

@@ -4,18 +4,17 @@ Reference: src-tauri/src/core/imaging/star_mask.rs — per-star disks of
 radius FWHM·growth with a smoothstep soft edge, max-combined, optional
 luminance-ceiling protection, coverage fraction.
 
-TPU design: detection gives ≤K stars as dense arrays; the mask is
+Design: detection gives ≤K stars as dense arrays; the mask is
 rasterized tile-by-tile: the padded plane is cut into TILE×TILE
 blocks, each block gets a candidate list of the stars whose 96×96
 windows intersect it (built with one vmapped argsort over a [tiles,
 stars] flag matrix), and a lax.map over blocks max-accumulates each
 candidate's soft disk over the block with a dynamic-bound fori_loop.
-Total VPU work is (stars × ~3 tiles × TILE²) instead of the K
-sequential dynamic-update-slices of the round-1..3 design (3000
-sequential 96² read-modify-writes dominated the masked-stretch bench
-row). Window-clipping semantics match the sequential kernel exactly:
-a star paints only inside its 96×96 window anchored at
-round(position), so soft radii beyond 47 px truncate identically.
+Total work is (stars × ~3 tiles × TILE²) instead of K sequential
+96² dynamic-update-slices. Window-clipping semantics match the
+sequential kernel exactly: a star paints only inside its 96×96 window
+anchored at round(position), so soft radii beyond 47 px truncate
+identically.
 """
 
 from __future__ import annotations
@@ -68,24 +67,10 @@ def _soft_disk(px, py, x, y, radius, softness):
     return jnp.where(radius > 0.0, val, 0.0)
 
 
-@partial(jax.jit, static_argnames=("luminance_protect", "use_pallas",
-                                   "interpret"))
+@partial(jax.jit, static_argnames=("luminance_protect",))
 def _mask_kernel(image, xs, ys, radii, softness, luminance_ceiling,
-                 luminance_protect: bool, use_pallas: bool | None = None,
-                 interpret: bool = False):
+                 luminance_protect: bool):
     h, w = image.shape
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        # parallel Pallas raster: the lax.map below is a sequential
-        # while loop over ~1.1k tiles (~65 µs latency each — 74 ms
-        # measured at 4096²/3000 stars for ~1e8 element-ops of math)
-        from astroburst_tpu.imaging.star_mask_kernel import (
-            paint_mask_pallas)
-        mask = paint_mask_pallas(xs, ys, radii, softness, h, w,
-                                 interpret=interpret)
-        return _mask_finish(image, mask, luminance_ceiling,
-                            luminance_protect, h, w)
     half = WINDOW // 2
     # padded plane (origin at image coord -half) rounded up to tiles
     hp = -(-(h + WINDOW) // TILE) * TILE

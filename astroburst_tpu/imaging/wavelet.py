@@ -6,8 +6,8 @@ from the finest scale (median |detail| · 1.4826), per-scale soft/hard
 thresholds with the standard à trous noise-scaling table, reconstruct
 with negative/non-finite clamp to 0.
 
-TPU design: the dilated 5-tap smooth is 5 clamped axis-takes per axis
-(fast path on this backend); the noise median is a compare-count rank
+Design: the dilated 5-tap smooth is 5 clamped axis-takes per axis;
+the noise median is a compare-count rank
 query.
 """
 

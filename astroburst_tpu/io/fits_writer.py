@@ -142,8 +142,7 @@ def _write_fits_file(path: str, hdr: bytes, planes, bitpix: int,
     """Write header + encoded planes. When the native encoders are
     available the payload is byteswapped DIRECTLY into the mmap'd
     output file — one source read + one page-cache write, where
-    encode-to-bytes + f.write() costs a third full pass (669 → ~300 ms
-    on the 618 MB RGB export)."""
+    encode-to-bytes + f.write() costs a third full pass."""
     bpp = abs(bitpix) // 8
     total = planes[0].size * bpp * len(planes)
     if bitpix in (16, -32) and _native.native_available():

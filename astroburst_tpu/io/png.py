@@ -1,9 +1,10 @@
 """PNG encoding (reference: src-tauri/src/infra/render/{grayscale,rgb}.rs).
 
-8-bit paths go through Pillow; 16-bit RGB is written by a direct PNG
-chunk writer (signature + IHDR + zlib IDAT + IEND) because Pillow has
-no Rgb16 mode — the reference writes true ``ColorType::Rgb16``
-(rgb.rs:49-95) and so do we, big-endian samples per the PNG spec.
+One direct chunk writer (signature + IHDR + zlib IDAT + IEND) covers
+every mode the reference writes: 8- and 16-bit grayscale, 8-bit RGB and
+true 16-bit RGB (``ColorType::Rgb16``, rgb.rs:49-95). Samples are
+big-endian per the PNG spec; scanlines use filter 0 (None) — the
+filter choice affects only compression, not decoded pixels.
 """
 
 from __future__ import annotations
@@ -15,11 +16,8 @@ import numpy as np
 
 from astroburst_tpu.errors import InvalidInput
 
-try:
-    from PIL import Image
-    _HAVE_PIL = True
-except ImportError:  # pragma: no cover
-    _HAVE_PIL = False
+# PNG colour types: 0 = grayscale, 2 = truecolor (RGB)
+_COLOR_TYPE = {1: 0, 3: 2}
 
 
 def _png_chunk(tag: bytes, payload: bytes) -> bytes:
@@ -27,49 +25,58 @@ def _png_chunk(tag: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
 
 
-def write_png_rgb16(rgb: np.ndarray, path: str) -> None:
-    """Write [H, W, 3] u16 as a true 16-bit-per-channel RGB PNG.
-
-    Matches the reference's Rgb16 export (rgb.rs:49-95): PNG bit depth
-    16, color type 2 (truecolor), big-endian sample order. Scanlines
-    use filter 0 (None) — filter choice affects only compression, not
-    decoded pixels.
-    """
-    arr = np.ascontiguousarray(rgb, dtype=">u2")
-    if arr.ndim != 3 or arr.shape[2] != 3:
-        raise InvalidInput(f"expected [H, W, 3] RGB, got {arr.shape}")
+def encode_png(pixels: np.ndarray, bit_depth: int = 8) -> bytes:
+    """PNG bytes of an [H, W] grayscale or [H, W, 3] RGB plane at bit
+    depth 8 (u8 samples) or 16 (u16 samples)."""
+    arr = np.asarray(pixels)
+    if bit_depth not in (8, 16):
+        raise InvalidInput(f"PNG bit depth must be 8 or 16, got {bit_depth}")
+    channels = 1 if arr.ndim == 2 else (arr.shape[2] if arr.ndim == 3
+                                        else 0)
+    if channels not in _COLOR_TYPE:
+        raise InvalidInput(
+            f"expected [H, W] grayscale or [H, W, 3] RGB, got {arr.shape}")
     h, w = arr.shape[:2]
-    raw = arr.view(np.uint8).reshape(h, w * 6)
+    samples = np.ascontiguousarray(arr, ">u2" if bit_depth == 16 else
+                                   np.uint8)
+    row_bytes = w * channels * bit_depth // 8
+    raw = samples.view(np.uint8).reshape(h, row_bytes)
     scanlines = np.concatenate(
         [np.zeros((h, 1), np.uint8), raw], axis=1).tobytes()
-    ihdr = struct.pack(">IIBBBBB", w, h, 16, 2, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, bit_depth, _COLOR_TYPE[channels],
+                       0, 0, 0)
+    return b"".join([b"\x89PNG\r\n\x1a\n", _png_chunk(b"IHDR", ihdr),
+                     _png_chunk(b"IDAT", zlib.compress(scanlines, 6)),
+                     _png_chunk(b"IEND", b"")])
+
+
+def write_png(pixels: np.ndarray, path: str, bit_depth: int = 8) -> None:
+    data = encode_png(pixels, bit_depth)
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_png_chunk(b"IHDR", ihdr))
-        f.write(_png_chunk(b"IDAT", zlib.compress(scanlines, 6)))
-        f.write(_png_chunk(b"IEND", b""))
+        f.write(data)
+
+
+def write_png_rgb16(rgb: np.ndarray, path: str) -> None:
+    """Write [H, W, 3] u16 as a true 16-bit-per-channel RGB PNG
+    (rgb.rs:49-95: bit depth 16, colour type 2)."""
+    arr = np.asarray(rgb)
+    if arr.ndim != 3 or arr.shape[2] != 3:
+        raise InvalidInput(f"expected [H, W, 3] RGB, got {arr.shape}")
+    write_png(arr.astype(np.uint16), path, 16)
 
 
 def save_gray_png(pixels: np.ndarray, path: str, bit_depth: int = 8) -> None:
     """Save a mono u8/u16 plane as PNG."""
-    if not _HAVE_PIL:
-        raise InvalidInput("PNG export requires Pillow")
     arr = np.asarray(pixels)
     if arr.ndim != 2:
         raise InvalidInput(f"expected 2D grayscale, got {arr.shape}")
-    if bit_depth == 16:
-        Image.fromarray(arr.astype(np.uint16), mode="I;16").save(path)
-    else:
-        Image.fromarray(arr.astype(np.uint8), mode="L").save(path)
+    dtype = np.uint16 if bit_depth == 16 else np.uint8
+    write_png(arr.astype(dtype), path, bit_depth)
 
 
 def save_rgb_png(r: np.ndarray, g: np.ndarray, b: np.ndarray, path: str,
                  bit_depth: int = 8) -> None:
     """Save three planes as an RGB PNG (u8, or true u16 at bit_depth 16)."""
     rgb = np.stack([np.asarray(r), np.asarray(g), np.asarray(b)], axis=-1)
-    if bit_depth == 16:
-        write_png_rgb16(rgb.astype(np.uint16), path)
-        return
-    if not _HAVE_PIL:
-        raise InvalidInput("PNG export requires Pillow")
-    Image.fromarray(rgb.astype(np.uint8), mode="RGB").save(path)
+    dtype = np.uint16 if bit_depth == 16 else np.uint8
+    write_png(rgb.astype(dtype), path, bit_depth)

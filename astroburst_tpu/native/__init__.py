@@ -1,6 +1,6 @@
 """Native host kernels (C++/OpenMP) with build-on-demand + fallback.
 
-The TPU does the pixel math; this covers the host-side byte work the
+The device does the pixel math; this covers the host-side byte work the
 reference implements in Rust: big-endian FITS decode/encode and masked
 scans over mmap'd bytes. Loaded via ctypes; everything degrades to the
 vectorized numpy paths if the shared library can't be built.

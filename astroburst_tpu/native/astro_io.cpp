@@ -19,8 +19,7 @@
 namespace {
 
 // unaligned word load + bswap intrinsic: GCC vectorizes these loops
-// (VPSHUFB on x86) where the shift-or byte form stays scalar — the
-// difference is ~0.5 vs ~5 GB/s on one core.
+// (VPSHUFB on x86) where the shift-or byte form stays scalar.
 inline uint16_t load_be16(const uint8_t* p) {
     uint16_t v;
     std::memcpy(&v, p, 2);

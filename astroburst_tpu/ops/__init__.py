@@ -1,8 +1,9 @@
-"""Shared TPU compute primitives (jit-compiled JAX).
+"""Shared compute primitives (jit-compiled JAX).
 
-Design notes: this backend has no usable scatter (≈110 ms for a 16 Mpx
-65536-bin histogram), no jnp.fft, and ~12 ns/element gathers — so
-quantiles use compare-count range refinement, FFTs are matmul
-four-step (complex as (re, im) f32 pairs), and resampling prefers
-separable static-tap stencils over gathers. See DESIGN.md.
+Design notes: quantiles use compare-count range refinement instead of
+scatter histograms, FFTs are matmul four-step (complex as (re, im) f32
+pairs), and resampling prefers separable static-tap stencils over
+gathers. These forms were chosen for the accelerator the library was
+first built on; whether each still beats the native op (jnp.fft,
+sort, scatter) on the GPU is open (ROADMAP D3). See DESIGN.md.
 """

@@ -1,12 +1,12 @@
 """Matmul FFT engine — complex as (re, im) float32 pairs.
 
-This backend has no jnp.fft (UNIMPLEMENTED) and only partial complex
-support, so we build the FFT from dense DFT matmuls that land on the
-MXU: a recursive four-step factorization n = n1·n2
-(DFT-n1 along the major digit → twiddle → DFT-n2 along the minor digit
-→ digit-reverse), bottoming out in a direct [n, n] DFT matmul for
-n ≤ 512. All matmuls run at HIGHEST precision (true f32) — default
-TPU matmul precision is bf16-ish and costs ~6e-4 relative error.
+The FFT is built from dense DFT matmuls on real (re, im) pairs: a
+recursive four-step factorization n = n1·n2 (DFT-n1 along the major
+digit → twiddle → DFT-n2 along the minor digit → digit-reverse),
+bottoming out in a direct [n, n] DFT matmul for n ≤ 512. All matmuls
+run at HIGHEST precision: true f32 on the H100, where DEFAULT would
+run them in TF32 (~1e-3 relative error). Whether jnp.fft (cuFFT)
+should replace this engine on the GPU is open (ROADMAP D3).
 
 Replaces the reference's rustfft engine
 (reference: src-tauri/src/math/fft.rs:96-199) with the same contract:
@@ -27,11 +27,11 @@ import numpy as np
 
 _HIGHEST = jax.lax.Precision.HIGHEST
 # Trace-time matmul precision for every DFT stage in this module.
-# HIGHEST (true f32, ~3-6 bf16 MXU passes) is the default contract;
-# matmul_precision("high") (3-pass bf16) is what RL deconvolution's
-# fast_precision uses — single-pass "default" compounded to ~5e-2 max
-# rel error through 20 RL iterations (BENCH r4 A/B), past the 1e-3
-# accuracy gate; "high" keeps the gate with most of the speed. The value is read when a caller is TRACED, so callers
+# HIGHEST (true f32) is the default contract; matmul_precision("default")
+# is what RL deconvolution's fast_precision uses — TF32 tensor-core
+# products on the H100, whose error through 20 RL iterations
+# bench_ops.py reports (max_rel_err_vs_f32). The value is
+# read when a caller is TRACED, so callers
 # that expose the choice MUST split their jit cache on it (a static
 # arg — see analysis/deconvolution._rl_kernel); thread-local storage
 # keeps a trace on another thread (prefetch workers etc.) at the
@@ -48,12 +48,10 @@ class matmul_precision:
     traced inside. Accepts exactly "highest" or "default"."""
 
     def __init__(self, p: str):
-        if p not in ("highest", "high", "default"):
+        if p not in ("highest", "default"):
             raise ValueError(
-                f"matmul_precision: {p!r} "
-                "(want 'highest', 'high' or 'default')")
+                f"matmul_precision: {p!r} (want 'highest' or 'default')")
         self._p = {"highest": _HIGHEST,
-                   "high": jax.lax.Precision.HIGH,
                    "default": jax.lax.Precision.DEFAULT}[p]
 
     def __enter__(self):
@@ -79,7 +77,7 @@ def next_power_of_two(n: int) -> int:
 
 def next_fast_size(n: int) -> int:
     """Smallest m ≥ n the four-step engine handles efficiently: even,
-    128-lane aligned, m = n1·n2 with n1 the largest power of two
+    a multiple of 128, m = n1·n2 with n1 the largest power of two
     ≤ √m and n2 ≤ _DIRECT_MAX (one direct matmul per stage, no
     recursion). Linear convolution only needs m ≥ rows + taps − 1;
     padding to this instead of next_power_of_two (fft.rs:64) cuts the
@@ -121,9 +119,8 @@ def _split(n: int) -> Tuple[int, int]:
 
 def _dft_along(xr, xi, inverse: bool, axis: int):
     """Direct DFT matmul along ``axis`` ∈ {-1, -2, -3} — expressed as
-    dot_general contractions so NO transpose ops are emitted (a
-    swapaxes on [.., 64, 64] minor dims relayouts at ~45 GB/s; the
-    MXU absorbs arbitrary contraction dims for free)."""
+    dot_general contractions so NO transpose ops are emitted (the
+    contraction takes any dimension order)."""
     n = xr.shape[axis]
     wr_np, wi_np = _dft_matrix(n, inverse)
     wr = jnp.asarray(wr_np)
@@ -335,8 +332,8 @@ def rfft2(x):
 
     Two savings over :func:`fft2_real`, ~2× total:
     - Row stage runs on R/2 complex rows: the top and bottom halves
-      pack as real/imag of one transform (contiguous half-slices —
-      NEVER stride-slice a plane on this backend) and untangle by
+      pack as real/imag of one transform (contiguous half-slices,
+      no strided slice) and untangle by
       conjugate symmetry afterwards.
     - Column stage runs on C/2 + 1 columns only.
     """

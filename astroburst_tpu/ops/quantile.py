@@ -3,12 +3,12 @@
 The reference computes exact medians by selection (≤4M px) or a
 65536-bin histogram with bin refinement (>4M px)
 (reference: src-tauri/src/core/imaging/stats.rs:85-210,
-src-tauri/src/math/median.rs:27-63). Neither maps to TPU: selection is
-sequential and scatter-add histograms measured ~110 ms / 16 Mpx here.
+src-tauri/src/math/median.rs:27-63). Selection is sequential and a
+histogram is a scatter-add; this module avoids both.
 
 Instead we narrow a [lo, hi) value bracket holding the target rank by
 counting `x < edge_j` for a small set of edges each round — a pure
-compare+reduce that the VPU eats. With BINS edges per round and R
+compare+reduce. With BINS edges per round and R
 rounds the bracket shrinks BINS^R-fold; the final value interpolates
 rank position inside the bracket exactly like the reference's
 `resolve_rank_in_hist` (stats.rs:334-353). Resolution: range / BINS^R
@@ -27,21 +27,21 @@ import jax.numpy as jnp
 # 8 edges-per-round x 6 rounds: SAME final bracket resolution as the
 # previous 64-bin x 3-round config (8**6 == 64**3 == 262144, ~4e-6
 # relative -- inside the 1e-5 parity budget) at 42 compares/element
-# instead of 189. The compare-count is VPU-compute-bound at >10 Mpx --
+# instead of 189. The compare-count is compute-bound at >10 Mpx --
 # with K rank queries each round costs K*(BINS-1) compares per
 # element, so fewer, narrower rounds win even though each round is one
 # more (memory-cheap) pass over x.
 BINS = 8
 ROUNDS = 6
-_CHUNK = 1 << 22  # 4M elements per scan step (measured best on v5e)
+_CHUNK = 1 << 22  # 4M elements per scan step
 
 
 def _count_below_edges(x: jax.Array, edges: jax.Array) -> jax.Array:
     """cnt[j] = #{i : x[i] < edges[j]} as f32. edges shape [E]; x has
     invalid mapped to +inf.
 
-    1-D x: scan-chunked (4M elements per step, measured best on v5e
-    for the single-device flat path). ND x: one fused broadcast-
+    1-D x: scan-chunked (4M elements per step, bounding the
+    intermediate of the single-device flat path). ND x: one fused broadcast-
     compare-reduce over every axis — this form preserves the input's
     GSPMD sharding (local partial counts + one psum), where the 1-D
     path's pad+reshape to (rows, _CHUNK) forces a full all-gather of

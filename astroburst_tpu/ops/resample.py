@@ -1,11 +1,10 @@
 """Resampling primitives: subpixel shift, area downsample.
 
-TPU formulation notes (see DESIGN.md): elementwise gathers cost
-~12 ns/px on this backend, but whole-row/column axis-takes are fast.
-A *global* subpixel translation has constant Catmull-Rom weights, so
-bicubic shift = 8 clamped axis-takes + weighted adds (separable),
-fully traceable (dy/dx can be device scalars). Area downsampling with
-non-integer ratios is two dense averaging matmuls on the MXU.
+Formulation notes (see DESIGN.md): a *global* subpixel translation
+has constant Catmull-Rom weights, so bicubic shift = 8 clamped
+whole-row/column axis-takes + weighted adds (separable), fully
+traceable (dy/dx can be device scalars). Area downsampling with
+non-integer ratios is two dense averaging matmuls.
 
 Reference semantics: core/imaging/sampling.rs (Catmull-Rom, clamped
 taps), core/stacking/align.rs:36-57 (out-of-bounds → 0, the ±0.5
@@ -112,7 +111,7 @@ def _box_matrix_dev(n_in: int, n_out: int) -> jax.Array:
 
 @partial(jax.jit, static_argnames=("out_rows", "out_cols"))
 def area_downsample(img: jax.Array, out_rows: int, out_cols: int) -> jax.Array:
-    """NaN-aware box-average downsample as two MXU matmuls."""
+    """NaN-aware box-average downsample as two matmuls."""
     in_rows, in_cols = img.shape
     if (in_rows, in_cols) == (out_rows, out_cols):
         return img

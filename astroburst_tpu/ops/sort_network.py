@@ -1,10 +1,10 @@
 """Elementwise bitonic sorting networks along axis 0.
 
 XLA's generic ``sort`` HLO on a short major axis lowers to a
-comparator loop that fuses poorly on TPU. These networks express every
+comparator loop that fuses poorly. These networks express every
 compare-exchange round as reshape + size-2-axis reverse + min/max —
-pure elementwise data flow the TPU backend fuses aggressively, keeping
-rounds in registers instead of HBM round trips. Used by the drizzle
+pure elementwise data flow that XLA fuses, keeping rounds out of
+device memory. Used by the drizzle
 finalize (stacking/drizzle.py), whose per-pixel candidate axis is
 short (≲64) while the batch (the output plane) is huge — exactly the
 regime where the network form wins.

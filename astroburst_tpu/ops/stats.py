@@ -1,6 +1,6 @@
 """Image statistics and histograms on device.
 
-TPU re-design of the reference's stats core
+Re-design of the reference's stats core
 (reference: src-tauri/src/core/imaging/stats.rs:15-210): one fused
 masked reduction pass (min/max/sum/count), then compare-count rank
 refinement for median/MAD (see ops.quantile). Matching the reference's
@@ -33,9 +33,8 @@ def stats_core(x: jax.Array, exact_pair: bool, flatten: bool = False):
 
     flatten=False (default) keeps x in its natural ND shape: the
     median's compare-count rounds run as ONE fused broadcast-compare-
-    reduce each — measured 7.83 vs 9.37 ms for the flat path's
-    chunked-scan form on a 12.5 Mpx plane on v5e (the scan serializes
-    3 chunk steps × 6 rounds), bit-identical results — and they stay
+    reduce each (the flat path's chunked scan serializes 3 chunk steps
+    × 6 rounds; results are bit-identical) — and they stay
     GSPMD-shardable (the flat path's pad+reshape chunking all-gathers
     a sharded plane). flatten=True remains for callers that want the
     bounded-intermediate chunked form on very large planes.

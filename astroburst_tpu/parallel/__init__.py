@@ -1,7 +1,7 @@
-"""Multi-chip scale-out: meshes, sharded pipelines.
+"""Multi-device scale-out: meshes, sharded pipelines.
 
 The reference is a single-node rayon app; its natural scale axes map
-to a TPU mesh as: frame axis (per-exposure align/decode/metrics —
+to a device mesh as: frame axis (per-exposure align/decode/metrics —
 data-parallel) and spatial row axis (per-pixel reductions, stencils —
 the sequence-parallel analog). See SURVEY.md §5.
 """

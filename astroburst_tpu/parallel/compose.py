@@ -8,11 +8,11 @@ stats drive the stretch; linked STF derives one (shadow, midtone) pair
 from the merged plane but normalizes each channel by its OWN stats;
 composite validity v ≤ 1e-7 → black).
 
-TPU mapping: every stage is either elementwise (blend einsum, WB gains,
+Mapping: every stage is either elementwise (blend einsum, WB gains,
 MTF) or a global reduction (histogram-refinement median/MAD in
 ``ops/stats.py``), so under a rows-sharded layout GSPMD only has to
 insert psum-family collectives — there is no resharding anywhere and
-therefore no replicate-then-slice risk (the round-2 sharded-pipeline
+therefore no replicate-then-slice risk (the sharded-pipeline
 failure mode). One jit covers the whole compose; scalars never leave
 the device between stages.
 """

@@ -2,7 +2,7 @@
 
 The reference collapses cubes on one host with rayon
 (src-tauri/src/core/cube/eager.rs:24-28) and keeps 2 GB cubes
-tractable by lazy-mmap frame caching (cube/lazy.rs). On TPU the
+tractable by lazy-mmap frame caching (cube/lazy.rs). Here the
 spectral axis shards over the mesh: each device holds a contiguous
 band of frames, collapses locally, and a `psum` (mean) or a global
 compare-count rank refinement (median) combines the bands — the cube

@@ -9,10 +9,10 @@ count: every device runs the banded kernel
 offset into the global output grid via ``row0_offset``.
 
 The input stack stays replicated — at drizzle scales (tens of frames ×
-Mpx) the stack fits HBM comfortably and each shard's gather window
-spans most input rows anyway, so sharding the input would buy little
-and cost halo machinery. Completes the SURVEY §5 distributed mapping
-for the drizzle stage (VERDICT r2 listed it single-device).
+Mpx) the stack fits device memory comfortably and each shard's gather
+window spans most input rows anyway, so sharding the input would buy
+little and cost halo machinery. Completes the SURVEY §5 distributed
+mapping for the drizzle stage.
 """
 
 from __future__ import annotations
@@ -30,8 +30,7 @@ def sharded_drizzle(mesh: Mesh, stack: jax.Array, d_ys: jax.Array,
                     kernel: DrizzleKernel, out_rows: int, out_cols: int,
                     sigma_low: float, sigma_high: float,
                     sigma_iterations: int, axis_name: str = "rows",
-                    band_rows: int = 64, use_pallas: bool | None = None,
-                    interpret: bool = False):
+                    band_rows: int = 64):
     """Exact-parity drizzle with output rows sharded over
     ``axis_name``. Returns (image [out_rows, out_cols], weight map,
     rejected scalar) — identical to _drizzle_kernel_exact.
@@ -51,8 +50,7 @@ def sharded_drizzle(mesh: Mesh, stack: jax.Array, d_ys: jax.Array,
         img, wgt, rej = _drizzle_kernel_exact(
             stack, d_ys, d_xs, scale, pixfrac, kernel, local_rows,
             out_cols, sigma_low, sigma_high, sigma_iterations,
-            band_rows=band_rows, use_pallas=use_pallas,
-            interpret=interpret, row0_offset=idx * local_rows)
+            band_rows=band_rows, row0_offset=idx * local_rows)
         return img, wgt, jax.lax.psum(rej, axis_name)
 
     img, wgt, rej = shard_map(

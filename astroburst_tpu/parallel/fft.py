@@ -4,7 +4,7 @@ and power spectrum over a device mesh (BASELINE config #5's
 over mesh"; reference single-core semantics:
 src-tauri/src/core/analysis/deconvolution.rs:141-213, analysis/fft.rs).
 
-Design — the classic distributed-FFT transpose form, on ICI:
+Design — the classic distributed-FFT transpose form:
 rows-sharded input; the row-axis transform (ops.fft four-step matmuls)
 is entirely LOCAL; one ``all_to_all`` re-lays the plane out
 cols-sharded; the column-axis transform is then local too. The inverse

@@ -1,11 +1,11 @@
 """Spatial sharding with halo exchange for stencil ops.
 
-The reference's spatial parallelism is rayon rows on one host; on TPU
+The reference's spatial parallelism is rayon rows on one host; here
 a full-res plane (e.g. the 13759×12451 JWST mosaic) shards over mesh
 rows, and stencils (à trous wavelet smooth, background grids, warps)
-need neighbor rows — exchanged with `jax.lax.ppermute` over ICI inside
+need neighbor rows — exchanged with `jax.lax.ppermute` inside
 `shard_map`. Global edges replicate the local border, reproducing the
-clamped-boundary semantics of the single-chip kernels.
+clamped-boundary semantics of the single-device kernels.
 """
 
 from __future__ import annotations

@@ -13,9 +13,6 @@ stretch, letting GSPMD insert the all-to-all / psum collectives.
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Optional
-
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -25,60 +22,24 @@ from astroburst_tpu.alignment.phase_correlation import (
 from astroburst_tpu.imaging.stf import apply_stf_traced, auto_stf_traced
 from astroburst_tpu.ops.resample import shift_bicubic
 from astroburst_tpu.ops.stats import stats_core
-from astroburst_tpu.stacking.combine import sigma_clip_core
-
-
-def _use_pallas_default() -> bool:
-    return jax.default_backend() == "tpu"
+from astroburst_tpu.stacking.combine import (shift_clip, sigma_clip_core,
+                                             use_onepass_kernel)
 
 
 def align_stack_stretch(stack: jax.Array, sigma_low: float = 3.0,
                         sigma_high: float = 3.0, max_iter: int = 5,
-                        align: bool = True, exact_pair: bool = False,
-                        use_pallas: bool | None = None,
-                        true_shape: tuple | None = None,
-                        off_max: int = 16, interpret: bool = False):
+                        align: bool = True, exact_pair: bool = False):
     """Pure traced pipeline over [N, H, W]; returns a dict of arrays:
     combined f32 [H,W], preview u8 [H,W], offsets [N,2] f32,
     confidences [N] f32, rejected i32, stf (shadow, midtone) f32.
 
-    On TPU the shift + sigma-clip stage runs as the one-pass Pallas
-    kernel (stacking.onepass_kernel): ONE read of the raw stack, no
-    pad/preshift round trips. Alignment offsets are clamped to
-    ±off_max on that path (dithered exposure offsets are small; the
-    two-stage ±253 px kernel remains for use_pallas="two_stage").
-    ``true_shape=(h, w)`` marks ``stack`` as already padded by
-    onepass_kernel.pad_stack_aligned — pre-pad at ingest to keep this
-    a true one-pass program."""
-    if use_pallas is None:
-        use_pallas = _use_pallas_default()
-    from astroburst_tpu.stacking.onepass_kernel import (MAX_FRAMES,
-                                                        shift_clip_onepass)
+    The shift + sigma-clip stage is ``stacking.combine.shift_clip``,
+    the same entry ``api.stack`` uses: the one-pass kernel on the GPU,
+    the XLA form elsewhere or past the kernel's frame budget."""
     n = stack.shape[0]
-    if true_shape is not None:
-        h, w = true_shape
-        view = stack[:, :h, :w]  # lazy; fuses into the coarse downsample
-    else:
-        view = stack
-    ref = view[0]
     if align and n > 1:
-        # batched coarse-to-fine with per-frame 3D dynamic-slice crops:
-        # the per-frame vmap form lowered its refine crop to an XLA
-        # gather — 4.3 ms of the 5.9 ms refine at 15×16 Mpx. (rfft
-        # pair packing stays out: measured SLOWER here, 25.0 vs
-        # 15.3 ms — the stage is dispatch/memory-bound.)
-        if true_shape is not None and use_pallas is True:
-            # padded-stack path: Pallas blockwise coarse box mean +
-            # frame-offset crop DMAs off the padded buffer — no
-            # materialized view copy, no [N, H, ds_c] intermediate
-            # (alignment/coarse_kernel.py)
-            from astroburst_tpu.alignment.phase_correlation import (
-                phase_correlate_stack_padded)
-            dys1, dxs1, confs1 = phase_correlate_stack_padded(
-                stack, true_shape, interpret=interpret)
-        else:
-            dys1, dxs1, confs1 = phase_correlate_stack_traced(
-                ref, view[1:])
+        dys1, dxs1, confs1 = phase_correlate_stack_traced(stack[0],
+                                                          stack[1:])
         dys = jnp.concatenate([jnp.zeros(1, jnp.float32), dys1])
         dxs = jnp.concatenate([jnp.zeros(1, jnp.float32), dxs1])
         confs = jnp.concatenate([jnp.zeros(1, jnp.float32), confs1])
@@ -87,25 +48,8 @@ def align_stack_stretch(stack: jax.Array, sigma_low: float = 3.0,
         dxs = jnp.zeros(n, jnp.float32)
         confs = jnp.zeros(n, jnp.float32)
 
-    if use_pallas == "two_stage" or (use_pallas and n > MAX_FRAMES):
-        from astroburst_tpu.stacking.fused_kernel import shift_clip_fused
-        combined, rejected = shift_clip_fused(view, dys, dxs, sigma_low,
-                                              sigma_high, max_iter,
-                                              interpret=interpret)
-    elif use_pallas:
-        # frame 0 is aligned to itself (offset exactly zero by
-        # construction; all frames when align=False) — static
-        # zero_frames compiles the raw-pixel identity path in and
-        # drops the per-frame runtime select (~2 ms/run at 16 frames)
-        zf = (0,) if (align and n > 1) else tuple(range(n))
-        combined, rejected = shift_clip_onepass(
-            stack, dys, dxs, sigma_low, sigma_high, max_iter,
-            off_max=off_max, true_shape=true_shape, interpret=interpret,
-            zero_frames=zf)
-    else:
-        full = jax.vmap(shift_bicubic)(view, dys, dxs)
-        combined, rejected = sigma_clip_core(full, sigma_low, sigma_high,
-                                             max_iter)
+    combined, rejected = shift_clip(stack, dys, dxs, sigma_low,
+                                    sigma_high, max_iter)
     mn, mx, _total, count, med, mad = stats_core(combined, exact_pair)
     sigma = jnp.maximum(mad * 1.4826, 1e-30)
     shadow, midtone = auto_stf_traced(mn, mx, med, sigma, count)
@@ -123,11 +67,10 @@ def align_stack_stretch(stack: jax.Array, sigma_low: float = 3.0,
 
 def _halo_clip_local(slab, dys, dxs, ax_names, n_sh: int, local_h: int,
                      h: int, halo: int, sigma_low: float,
-                     sigma_high: float, max_iter: int, off_max: int,
-                     interpret: bool, zero_frames: tuple | None = None):
+                     sigma_high: float, max_iter: int, interpret: bool):
     """Per-shard body shared by the reshard variants: ppermute halo
     exchange (edge replicas at the global boundaries), then the
-    one-pass Pallas shift+clip on the extended slab."""
+    one-pass shift+clip kernel on the extended slab."""
     from astroburst_tpu.stacking.onepass_kernel import (
         shift_clip_onepass_slab)
 
@@ -145,8 +88,7 @@ def _halo_clip_local(slab, dys, dxs, ax_names, n_sh: int, local_h: int,
     grow0 = (idx * local_h).astype(jnp.int32)
     combined, rejected = shift_clip_onepass_slab(
         ext, dys, dxs, halo, grow0, h, sigma_low, sigma_high,
-        max_iter, off_max=off_max, interpret=interpret,
-        zero_frames=zero_frames)
+        max_iter, interpret=interpret)
     return combined, jax.lax.psum(rejected, ax_names)
 
 
@@ -154,14 +96,12 @@ def sharded_shift_clip_a2a(mesh: Mesh, stack: jax.Array, dys: jax.Array,
                            dxs: jax.Array, frames_axis: str,
                            rows_axis: str, sigma_low: float,
                            sigma_high: float, max_iter: int,
-                           off_max: int = 16, interpret: bool = False,
-                           zero_frames: tuple | None = None):
+                           off_max: int = 16, interpret: bool = False):
     """Row-sharded one-pass shift+clip taking a FRAMES-sharded stack,
     with the frames→rows reshard done as one explicit ``all_to_all``
-    over the frames mesh axis (VERDICT r2 weak #2: the implicit
-    sharding-constraint reshard compiled to GSPMD's involuntary
-    full-rematerialization fallback — replicating the whole aligned
-    stack to every device).
+    over the frames mesh axis (the implicit sharding-constraint
+    reshard compiled to GSPMD's full-rematerialization fallback,
+    replicating the whole aligned stack to every device).
 
     Layout walkthrough (F = |frames axis|, R = |rows axis|,
     n_sh = F·R): device (f, r) enters holding its n/F frames at full
@@ -169,8 +109,8 @@ def sharded_shift_clip_a2a(mesh: Mesh, stack: jax.Array, dys: jax.Array,
     (F, R, local_h), takes its r-slice — free, the data is replicated
     over r — and all_to_all's the F axis: split piece j goes to device
     (j, r), so (f, r) ends with ALL n frames over row block
-    g = f·R + r. Only the truly-moving bytes cross ICI, in one
-    collective; the result shard order matches
+    g = f·R + r. Only the truly-moving bytes cross the interconnect,
+    in one collective; the result shard order matches
     P((frames_axis, rows_axis)).
     """
     from jax import shard_map
@@ -207,7 +147,7 @@ def sharded_shift_clip_a2a(mesh: Mesh, stack: jax.Array, dys: jax.Array,
         slab = x.reshape(n, local_h, w)
         return _halo_clip_local(slab, dys, dxs, ax_names, n_sh, local_h,
                                 h, halo, sigma_low, sigma_high, max_iter,
-                                off_max, interpret, zero_frames)
+                                interpret)
 
     combined, rejected = shard_map(
         local_fn, mesh=mesh,
@@ -254,12 +194,12 @@ def reshard_frames_to_rows(mesh: Mesh, x: jax.Array, frames_axis: str,
 def sharded_shift_clip(mesh: Mesh, stack: jax.Array, dys: jax.Array,
                        dxs: jax.Array, row_axes, sigma_low: float,
                        sigma_high: float, max_iter: int,
-                       off_max: int = 16, interpret: bool = False,
-                       zero_frames: tuple | None = None):
-    """Row-sharded one-pass Pallas shift+clip via shard_map.
+                       off_max: int = 16, interpret: bool = False):
+    """Row-sharded one-pass shift+clip kernel via shard_map.
 
     Each shard holds a horizontal band of every frame; ``off_max + 2``
-    halo rows ride ICI via two ppermutes, the global top/bottom halos
+    halo rows move between neighbours via two ppermutes, offsets are
+    clamped to ±off_max, the global top/bottom halos
     are edge replicas (align.rs clamp semantics), and the fused kernel
     runs per shard with the outside-source zero mask evaluated in
     global coordinates. ``row_axes`` is a mesh axis name or tuple —
@@ -290,7 +230,7 @@ def sharded_shift_clip(mesh: Mesh, stack: jax.Array, dys: jax.Array,
     def local_fn(slab, dys, dxs):
         return _halo_clip_local(slab, dys, dxs, ax_names, n_sh, local_h,
                                 h, halo, sigma_low, sigma_high, max_iter,
-                                off_max, interpret, zero_frames)
+                                interpret)
 
     combined, rejected = shard_map(
         local_fn, mesh=mesh,
@@ -304,21 +244,20 @@ def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
                             sigma_high: float = 3.0, max_iter: int = 5,
                             align: bool = True,
                             use_pallas: bool | None = None,
-                            interpret: bool | None = None,
+                            interpret: bool = False,
                             off_max: int = 16):
     """jit the pipeline over a (frames, rows) mesh.
 
     Alignment runs frame-sharded; the combine/stretch run row-sharded
     — the constraint between them is where GSPMD places the reshard
-    collective (all-to-all over ICI). By default the shift+clip stage
-    is the one-pass Pallas kernel per row-shard (sharded_shift_clip)
-    with rows split across ALL mesh axes so no device idles;
-    use_pallas=False keeps the unfused XLA path.
+    collective (all-to-all). ``use_pallas`` (default: where the
+    one-pass kernel compiles and the frames fit its budget, as
+    ``stacking.combine.shift_clip`` decides) runs the kernel per
+    row-shard (sharded_shift_clip) with rows split across ALL mesh
+    axes so no device idles; otherwise the unfused XLA path.
+    ``interpret`` runs the kernel in the Pallas interpreter (CPU
+    tests only).
     """
-    if use_pallas is None:
-        use_pallas = _use_pallas_default()
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
     all_axes = tuple(ax for ax in ("frames", "rows")
                      if ax in mesh.axis_names)
     two_axes = len(all_axes) == 2
@@ -336,6 +275,8 @@ def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
         # the explicit all_to_all reshard needs whole frame blocks per
         # device; otherwise fall back to the GSPMD constraint reshard
         can_a2a = two_axes and n % mesh.shape["frames"] == 0
+        use_kernel = (use_onepass_kernel(n) if use_pallas is None
+                      else use_pallas)
         ref = stack[0]
         if align and n > 1:
             def est(frame):
@@ -351,25 +292,21 @@ def make_sharded_stack_step(mesh: Mesh, sigma_low: float = 3.0,
             dxs = jnp.zeros(n, jnp.float32)
             confs = jnp.zeros(n, jnp.float32)
 
-        if use_pallas:
+        if use_kernel:
             if can_a2a:
                 # explicit frames→rows all_to_all inside the shard_map
                 # — ONE collective moving only the bytes that move (the
                 # implicit constraint reshard compiled to GSPMD's
-                # replicate-then-slice fallback, VERDICT r2 weak #2)
+                # replicate-then-slice fallback)
                 combined, rejected = sharded_shift_clip_a2a(
                     mesh, stack, dys, dxs, "frames", "rows", sigma_low,
                     sigma_high, max_iter, off_max=off_max,
-                    interpret=interpret,
-                    zero_frames=(0,) if align and n > 1
-                    else tuple(range(n)))
+                    interpret=interpret)
             else:
                 combined, rejected = sharded_shift_clip(
                     mesh, stack, dys, dxs, all_axes, sigma_low,
                     sigma_high, max_iter, off_max=off_max,
-                    interpret=interpret,
-                    zero_frames=(0,) if align and n > 1
-                    else tuple(range(n)))
+                    interpret=interpret)
         else:
             full = jax.vmap(shift_bicubic)(stack, dys, dxs)
             # reshard: frame-parallel → row-parallel for the reduction

@@ -6,7 +6,7 @@ per-column shear + row takes) touches each COLUMN independently, and
 pass 2 (horizontal resample) touches each ROW independently. Sharding
 pass 1 over columns and pass 2 over rows makes every roll/take/select
 local to its shard; GSPMD inserts exactly one all-to-all between the
-passes at the sharding-constraint boundary (riding ICI), plus the
+passes at the sharding-constraint boundary, plus the
 final mask runs row-sharded.
 
 Reference semantics: affine.rs:663-690 per-pixel bicubic with

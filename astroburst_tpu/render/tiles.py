@@ -4,7 +4,7 @@ Reference: src-tauri/src/infra/render/tiles.rs — NaN-aware 2× area
 downsample, per-tile 8-bit render against global 0.1%/99.9% percentile
 bounds, mono/RGB variants.
 
-TPU design: each pyramid level is quantized to u8 in one device op
+Design: each pyramid level is quantized to u8 in one device op
 (masked 2×2 mean + global-bounds scale), then host code slices the
 level into PNG tiles.
 """

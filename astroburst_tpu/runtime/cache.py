@@ -1,8 +1,8 @@
 """Global LRU image cache holding device-resident float32 planes.
 
-TPU analog of the reference's ORIG/KEY cache
+Device analog of the reference's ORIG/KEY cache
 (reference: src-tauri/src/infra/cache.rs): entries are jax.Arrays (the
-device is the backing store — HBM instead of host RAM), with optional
+device is the backing store — its memory instead of host RAM), with optional
 ImageStats and header attached. Composite (`__composite_*`), wizard
 (`__wizard_ch_*`) and star-mask keys are pinned and never evicted
 (cache.rs:90-92). Eviction is generation-counter LRU with byte and

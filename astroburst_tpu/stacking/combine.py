@@ -6,13 +6,14 @@ clip: iteration 0 uses median + MAD·1.4826 (Stetson 1987), iterations
 removes nothing; final estimate is the mean of survivors (fallback:
 last center).
 
-TPU re-design: frames live on a leading [N, H, W] axis; the reference's
+Frames live on a leading [N, H, W] axis; the reference's
 data-dependent retain/compaction loop becomes fixed-iteration masked
 updates with a per-pixel `stopped` flag reproducing the early-break
-semantics exactly. The iteration-0 median/MAD use one tiny-axis sort
-(N ≤ ~64 ⇒ an O(N log²N) sorting network on the VPU) plus a one-hot
-rank select — no gathers. Alignment (phase correlation) and subpixel
-shifts batch over frames in the same jit.
+semantics exactly. The iteration-0 median/MAD use one sort along the
+frame axis plus a one-hot rank select. ``shift_clip`` is the one
+shift + clip entry of both the api and the fused pipeline: the one-pass
+GPU kernel (stacking/onepass_kernel.py) where it compiles and the
+stack fits its register budget, this module's XLA form otherwise.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from astroburst_tpu.alignment.phase_correlation import (_phase_correlate_traced,
-                                                        correlate_single)
+from astroburst_tpu.alignment.phase_correlation import (
+    phase_correlate_stack_traced)
 from astroburst_tpu.constants import MAD_TO_SIGMA
 from astroburst_tpu.dtypes import AlignmentMethod, StackConfig
 from astroburst_tpu.errors import InvalidInput
@@ -108,17 +109,49 @@ sigma_clip_combine_stack = jax.jit(
     sigma_clip_core, static_argnames=("sigma_low", "sigma_high", "max_iter"))
 
 
-@jax.jit
-def _align_frames_to_ref(ref: jax.Array, frames: jax.Array):
-    """Phase-correlate each frame against ref; subpixel-shift it back.
+def shift_clip_xla(stack: jax.Array, dys: jax.Array, dxs: jax.Array,
+                   sigma_low: float = 3.0, sigma_high: float = 3.0,
+                   max_iter: int = 5):
+    """Plain XLA shift + clip: ``vmap(shift_bicubic)`` then
+    ``sigma_clip_core``. The kernel's reference and the path for stacks
+    past its frame budget."""
+    full = jax.vmap(shift_bicubic)(stack, dys, dxs)
+    return sigma_clip_core(full, sigma_low, sigma_high, max_iter)
 
-    frames [M, H, W] → (aligned [M, H, W], dys [M], dxs [M], confs [M]).
-    """
-    def one(frame):
-        dy, dx, conf = _phase_correlate_traced(ref, frame)
-        return shift_bicubic(frame, dy, dx), dy, dx, conf
 
-    return jax.vmap(one)(frames)
+def triton_available() -> bool:
+    """Pallas kernels on the Triton route compile only for a CUDA
+    device; elsewhere (the CPU) every operation takes its XLA form."""
+    return jax.default_backend() == "gpu"
+
+
+def use_onepass_kernel(n_frames: int) -> bool:
+    """The one-pass kernel runs when it compiles here and a pixel's
+    ``n_frames`` samples fit its register budget. Pallas is imported
+    only where the kernel can run."""
+    if not triton_available():
+        return False
+    from astroburst_tpu.stacking.onepass_kernel import MAX_FRAMES
+    return n_frames <= MAX_FRAMES
+
+
+def shift_clip(stack: jax.Array, dys: jax.Array, dxs: jax.Array,
+               sigma_low: float = 3.0, sigma_high: float = 3.0,
+               max_iter: int = 5):
+    """Shift each frame by (dys[k], dxs[k]) and sigma-clip combine
+    (align.rs:36-57 + combine.rs:14-91). Returns (combined [H, W] f32,
+    rejected i32 scalar). Traceable."""
+    if use_onepass_kernel(stack.shape[0]):
+        from astroburst_tpu.stacking.onepass_kernel import (
+            shift_clip_onepass)
+        return shift_clip_onepass(stack, dys, dxs, sigma_low, sigma_high,
+                                  max_iter)
+    return shift_clip_xla(stack, dys, dxs, sigma_low, sigma_high,
+                          max_iter)
+
+
+_shift_clip_jit = jax.jit(
+    shift_clip, static_argnames=("sigma_low", "sigma_high", "max_iter"))
 
 
 @dataclass
@@ -144,15 +177,10 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
 
     offsets: List[Tuple[int, int]] = [(0, 0)]
     confidences: List[float] = [0.0]
-    use_pallas = jax.default_backend() == "tpu"
     if config.align and n > 1:
-        # batched stack align (3D dynamic-slice / DMA refine crops) —
-        # the per-frame vmap form lowered its refine crop to an XLA
-        # gather, ~4.3 ms of the refine at 15×16 Mpx; equality with
-        # the per-frame path is asserted by
+        # batched stack align; equality with the per-frame path is
+        # asserted by
         # test_phase_correlation.py::test_stack_pc_matches_per_frame
-        from astroburst_tpu.alignment.phase_correlation import (
-            phase_correlate_stack_traced)
         dys1, dxs1, confs = phase_correlate_stack_traced(
             stack[0], stack[1:])
         dys = jnp.concatenate([jnp.zeros(1, jnp.float32), dys1])
@@ -169,17 +197,9 @@ def stack_images(images: Sequence, config: StackConfig = StackConfig(),
         offsets += [(0, 0)] * (n - 1)
         confidences += [0.0] * (n - 1)
 
-    if use_pallas:
-        from astroburst_tpu.stacking.fused_kernel import shift_clip_fused
-        combined, rejected = shift_clip_fused(
-            stack, dys, dxs, config.sigma_low, config.sigma_high,
-            config.max_iterations)
-    else:
-        if config.align and n > 1:
-            stack = jax.jit(jax.vmap(shift_bicubic))(stack, dys, dxs)
-        combined, rejected = sigma_clip_combine_stack(
-            stack, config.sigma_low, config.sigma_high,
-            config.max_iterations)
+    combined, rejected = _shift_clip_jit(
+        stack, dys, dxs, config.sigma_low, config.sigma_high,
+        config.max_iterations)
     if progress is not None:
         progress.tick_with_stage("combine")
     return StackResult(image=combined, frame_count=n,

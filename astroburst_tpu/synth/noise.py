@@ -4,7 +4,7 @@ Reference: src-tauri/src/core/synth/noise.rs — Poisson shot noise on
 (signal + sky)·gain·t + dark·t electrons, Gaussian read noise, bias
 pedestal, gain division; vignetted flat field with 1% pixel noise.
 
-TPU design: jax.random (threefry) replaces the reference's StdRng —
+Design: jax.random (threefry) replaces the reference's StdRng —
 distributions match, exact random sequences don't (documented).
 """
 

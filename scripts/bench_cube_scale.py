@@ -1,16 +1,18 @@
 """2 GB IFU cube scale smoke (BASELINE config #5): write a real
-500x1000x1000 f32 BITPIX=-32 cube, open lazily, run the cube command
-surface end to end on CPU."""
-import sys, time, os
-sys.path.insert(0, "/root/repo")
-os.environ["JAX_PLATFORMS"] = "cpu"
-os.environ.setdefault("ASTROBURST_CONFIG_DIR", "/tmp/verify/config")
-os.environ.setdefault("ASTROBURST_DATA_DIR", "/tmp/verify/data")
-import jax; jax.config.update("jax_platforms", "cpu")
+500x1000x1000 f32 BITPIX=-32 cube to a temporary directory, open it
+lazily and run the cube command surface end to end, then the sharded
+FFT stages over an 8-device virtual CPU mesh.
+
+Run from the repository root: python scripts/bench_cube_scale.py"""
+import shutil, sys, time, os, tempfile
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+work = tempfile.mkdtemp(prefix="cube_scale_")
+os.environ.setdefault("ASTROBURST_CONFIG_DIR", os.path.join(work, "config"))
+os.environ.setdefault("ASTROBURST_DATA_DIR", os.path.join(work, "data"))
+import jax
 import numpy as np
 
-os.makedirs("/tmp/cube_scale", exist_ok=True)
-p = "/tmp/cube_scale/big_cube.fits"
+p = os.path.join(work, "big_cube.fits")
 B, H, W = 500, 1000, 1000
 
 t0 = time.perf_counter()
@@ -38,7 +40,7 @@ info = api.get_cube_info(p)
 print(f"get_cube_info: {info} in {time.perf_counter()-t0:.1f}s", flush=True)
 
 t0 = time.perf_counter()
-out = api.process_cube_lazy_cmd(p, "/tmp/cube_scale", frame_step=50)
+out = api.process_cube_lazy_cmd(p, work, frame_step=50)
 print(f"process_cube_lazy: keys={sorted(out.keys())[:8]} "
       f"in {time.perf_counter()-t0:.0f}s", flush=True)
 
@@ -57,11 +59,13 @@ print("CUBE SCALE OK", flush=True)
 
 # sharded FFT stages over an 8-virtual-device mesh on a cube slice
 # (BASELINE config #5: "FFT power spectrum + deconvolution sharded
-# over mesh") — virtual CPU mesh here; same code drives real chips
+# over mesh") — an 8-device virtual CPU mesh; the same code drives
+# real cards
 os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                            + " --xla_force_host_platform_device_count=8")
 import jax.extend as jex
 jex.backend.clear_backends()
+jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 from astroburst_tpu.analysis.deconvolution import generate_gaussian_psf
 from astroburst_tpu.dtypes import RLConfig
@@ -86,3 +90,4 @@ spec.block_until_ready()
 print(f"sharded power spectrum: {spec.shape} in "
       f"{time.perf_counter()-t0:.1f}s", flush=True)
 print("SHARDED FFT STAGES OK", flush=True)
+shutil.rmtree(work, ignore_errors=True)

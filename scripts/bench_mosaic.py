@@ -1,7 +1,9 @@
-"""Full-res JWST mosaic scale sanity: 13759x12451 f32 plane on one chip.
-BASELINE.json config #4: tone curves, masked stretch, SCNR at full res."""
-import sys, time
-sys.path.insert(0, "/root/repo")
+"""Full-res JWST mosaic scale sanity: 13759x12451 f32 plane on one card.
+BASELINE.json config #4: stats, auto-STF and preview at full res.
+
+Run from the repository root: python scripts/bench_mosaic.py"""
+import os, sys, time
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax, jax.numpy as jnp
 
 H, W = 13759, 12451

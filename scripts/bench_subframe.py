@@ -3,16 +3,18 @@ subframe selector metrics on a 16-frame JWST-NIRCam-sized set
 (5655×2206). Reference: `affine.rs:129-270` + `subframe.rs` chain,
 0.8 s published for the align half alone (tex:616).
 
-Run: python scripts/bench_subframe.py   (TPU; ~6 min first compile)
+Run from the repository root: python scripts/bench_subframe.py
 """
 
 import math
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 import jax
 import jax.numpy as jnp

@@ -17,6 +17,8 @@ from tests.reference_impl.stf import (ref_apply_stf_f32, ref_apply_stf_u8,
 from tests.reference_impl.scnr import ref_apply_scnr
 from tests.reference_impl.curves import (ref_apply_levels, ref_spline_lut)
 from tests.reference_impl.drizzle import ref_drizzle
+from tests.reference_impl.shift import ref_shift_rows
+from tests.reference_impl.png import ref_decode_png
 
 __all__ = [
     "ref_valid", "ref_median", "ref_mad", "ref_stats",
@@ -25,4 +27,6 @@ __all__ = [
     "ref_apply_scnr",
     "ref_spline_lut", "ref_apply_levels",
     "ref_drizzle",
+    "ref_shift_rows",
+    "ref_decode_png",
 ]

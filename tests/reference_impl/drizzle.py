@@ -6,7 +6,7 @@ input row asc, col asc, output oy asc, ox asc — drizzle.rs:60-118),
 finalized with the per-pixel median/MAD sigma clip of the individual
 contributions (drizzle.rs:121-195).
 
-This is the exact semantics the gather-side TPU reformulation
+This is the exact semantics the gather-side reformulation
 (astroburst_tpu/stacking/drizzle.py) approximates by pre-averaging
 same-frame contributions; tests/test_reference_impl.py quantifies that
 delta on adversarial configs.

@@ -1,4 +1,4 @@
-"""Collective contracts for every sharded path (VERDICT r3 #7).
+"""Collective contracts for every sharded path.
 
 Each test compiles the sharded program on an 8-virtual-device CPU mesh
 and asserts the HLO contains exactly the INTENDED collectives — and no
@@ -141,7 +141,7 @@ def test_contract_sharded_drizzle(rng):
     dxs = jnp.asarray(rng.uniform(-1, 1, 4), jnp.float32)
     fn = jax.jit(lambda s, a, b: sharded_drizzle(
         mesh, s, a, b, 2.0, 0.8, DrizzleKernel.SQUARE, 512, 512,
-        3.0, 3.0, 2, band_rows=8, use_pallas=False))
+        3.0, 3.0, 2, band_rows=8))
     hlo = fn.lower(stack, dys, dxs).compile().as_text()
     coll = collective_sizes(hlo)
     # the input stack is deliberately replicated (every shard drizzles

@@ -10,7 +10,6 @@ import jax.numpy as jnp
 
 from astroburst_tpu.alignment import affine as A
 from astroburst_tpu.alignment import fused_chain as FC
-from astroburst_tpu.alignment.vote_kernel import vote_pallas
 from astroburst_tpu.analysis import star_detection as SD
 
 
@@ -33,36 +32,64 @@ def invert(t):
                              c=ic, d=id_, ty=-(ic * t.tx + id_ * t.ty))
 
 
-def test_vote_pallas_matches_xla_kernel():
+def _np_votes(ratios_r, verts_r, ratios_t, verts_t):
+    """votes[a, b]: tolerance-matched (ref, tgt) triangle pairs whose
+    p-th vertices are stars a and b, summed over p (affine.rs:320-384)."""
+    votes = np.zeros((A._STAR_CAP, A._STAR_CAP), np.int64)
+    ok_r = np.isfinite(ratios_r).all(axis=1)
+    ok_t = np.isfinite(ratios_t).all(axis=1)
+    for i in np.flatnonzero(ok_r):
+        m = ok_t & (np.abs(ratios_t[:, 0] - ratios_r[i, 0])
+                    <= A.TRIANGLE_TOLERANCE) & (
+            np.abs(ratios_t[:, 1] - ratios_r[i, 1]) <= A.TRIANGLE_TOLERANCE)
+        for j in np.flatnonzero(m):
+            for p in range(3):
+                votes[verts_r[i, p], verts_t[j, p]] += 1
+    return votes
+
+
+def test_vote_kernel_matches_numpy_oracle():
     rng = np.random.default_rng(0)
-    stars_r = rng.random((40, 2)) * 2000
-    stars_t = stars_r + np.array([7.0, -4.0]) + rng.normal(0, 0.01, (40, 2))
+    stars_r = rng.random((15, 2)) * 2000
+    stars_t = stars_r + np.array([7.0, -4.0]) + rng.normal(0, 0.01, (15, 2))
     vr, rr = A.build_triangles(stars_r)
     vt, tr = A.build_triangles(stars_t)
-    pv_r, pr_r = A._pad_tris(vr, rr)
-    pv_t, pr_t = A._pad_tris(vt, tr)
-    ref = np.asarray(A._vote_kernel(
+
+    def pad(v, r):  # +inf ratio rows to a vote-chunk multiple
+        t = -(-len(v) // A._VOTE_CHUNK) * A._VOTE_CHUNK
+        return (np.concatenate([v, np.zeros((t - len(v), 3), np.int32)]),
+                np.concatenate([r, np.full((t - len(r), 2), np.inf,
+                                           np.float32)]))
+
+    pv_r, pr_r = pad(vr, rr)
+    pv_t, pr_t = pad(vt, tr)
+    got = np.asarray(A._vote_kernel(
         jnp.asarray(pr_r), jnp.asarray(pv_r), jnp.asarray(pr_t),
         jnp.asarray(pv_t), A._STAR_CAP, A._STAR_CAP))
+    want = _np_votes(pr_r, pv_r, pr_t, pv_t)
+    np.testing.assert_array_equal(got, want)
+    assert want.max() > 0
 
-    T = pr_r.shape[0]
-    tp = -(-T // 2048) * 2048
 
-    def pad_t(v, r, sort):
-        v = np.concatenate([v, np.zeros((tp - T, 3), np.int32)])
-        r = np.concatenate([r, np.full((tp - T, 2), np.inf, np.float32)])
-        if sort:
-            order = np.argsort(r[:, 0], kind="stable")
-            v, r = v[order], r[order]
-        return jnp.asarray(r.T), jnp.asarray(v.T)
-
-    # votes are permutation-invariant: identical with and without the
-    # ratio sort that enables the block-overlap skip
-    for sort in (False, True):
-        rrt, rvt = pad_t(pv_r, pr_r, sort)
-        trt, tvt = pad_t(pv_t, pr_t, sort)
-        got = np.asarray(vote_pallas(rrt, rvt, trt, tvt, interpret=True))
-        np.testing.assert_array_equal(got, ref)
+def test_fused_chain_votes_match_numpy_oracle():
+    """The fused chain's votes from its device triangle tables (star
+    slots past the real stars are +inf and build no triangle)."""
+    rng = np.random.default_rng(1)
+    n = FC._N_TRI_STARS
+    pts = rng.random((12, 2)) * 900 + 50
+    xs = np.full(n, np.inf, np.float32)
+    ys = np.full(n, np.inf, np.float32)
+    xs[:12], ys[:12] = pts[:, 0], pts[:, 1]
+    rr_t, rv_t = FC._device_triangles(jnp.asarray(xs), jnp.asarray(ys))
+    xt = xs.copy()
+    xt[:12] += 5.0
+    tr_t, tv_t = FC._device_triangles(jnp.asarray(xt), jnp.asarray(ys))
+    got = np.asarray(FC._votes(rr_t, rv_t, tr_t, tv_t))
+    want = _np_votes(np.asarray(rr_t).T, np.asarray(rv_t).T,
+                     np.asarray(tr_t).T, np.asarray(tv_t).T)
+    np.testing.assert_array_equal(got, want)
+    # a pure translation matches every star to itself
+    assert (np.argmax(want[:12, :12], axis=1) == np.arange(12)).all()
 
 
 def test_device_dedupe_matches_host():

@@ -1,11 +1,11 @@
-"""One-pass shift+clip kernel parity (interpret mode, CPU backend).
+"""One-pass shift+clip kernel parity (Pallas interpreter, CPU backend).
 
 Oracle: shift_bicubic + sigma_clip_core, the XLA forms already
 parity-tested against the reference semantics
 (src-tauri/src/core/stacking/combine.rs:14-91, align.rs:36-57).
 Borderline clip decisions may flip on the last f32 ulp when the
-kernel's tap-summation order differs from the oracle's — tolerated as
-a bounded count of differing pixels, like the two-stage fused tests.
+kernel's summation order differs from the oracle's — tolerated as a
+bounded count of differing pixels.
 """
 
 import numpy as np
@@ -14,8 +14,11 @@ import jax.numpy as jnp
 import pytest
 
 from astroburst_tpu.ops.resample import shift_bicubic
+from astroburst_tpu.stacking import combine
 from astroburst_tpu.stacking.combine import sigma_clip_core
-from astroburst_tpu.stacking.onepass_kernel import (pad_stack_aligned,
+from astroburst_tpu.stacking.onepass_kernel import (MAX_FRAMES, _clip_body,
+                                                    _select_rank,
+                                                    _shift_clip_call,
                                                     shift_clip_onepass)
 
 
@@ -25,10 +28,9 @@ def _stack(rng, n=6, h=130, w=170, nan_frac=0.02):
     return s
 
 
-def _oracle(s, dys, dxs, lo, hi, iters, off_max=16):
+def _oracle(s, dys, dxs, lo, hi, iters):
     shifted = jnp.stack([
-        shift_bicubic(s[k], float(np.clip(dys[k], -off_max, off_max)),
-                      float(np.clip(dxs[k], -off_max, off_max)))
+        shift_bicubic(s[k], float(dys[k]), float(dxs[k]))
         for k in range(s.shape[0])])
     return jax.jit(lambda x: sigma_clip_core(x, lo, hi, iters))(shifted)
 
@@ -59,7 +61,7 @@ def test_onepass_zero_offsets_is_plain_clip(rng):
 
 
 def test_onepass_extreme_offsets_at_clamp(rng):
-    # every border-replication path (top/bottom/left/right + corners)
+    # every edge-replication path (top/bottom/left/right + corners)
     s = jnp.asarray(_stack(rng, n=4, h=200, w=300, nan_frac=0.0))
     dys = np.float32([0, 16, -16, 15])
     dxs = np.float32([0, -16, 16, -15])
@@ -79,15 +81,16 @@ def test_onepass_fractional_near_clamp(rng):
     _assert_close(got, ref, got_rej, ref_rej)
 
 
-def test_onepass_beyond_off_max_clamped(rng):
-    # offsets beyond off_max are clamped into range, not wrapped
+def test_onepass_offsets_beyond_image(rng):
+    # no offset envelope: a frame shifted past the image contributes
+    # zeros (outside-source), exactly like the unfused path
     s = jnp.asarray(_stack(rng, n=3, h=64, w=64, nan_frac=0.0))
-    dys = jnp.asarray([0.0, 500.0, -500.0], jnp.float32)
-    got, _ = shift_clip_onepass(s, dys, jnp.zeros(3, jnp.float32),
-                                3.0, 3.0, 2, interpret=True)
-    ref, _ = _oracle(s, np.float32([0, 500, -500]), np.zeros(3, np.float32),
-                     3.0, 3.0, 2)
-    _assert_close(got, ref, 0, 0)
+    dys = np.float32([0, 500, -500])
+    dxs = np.float32([0, 0, 3.5])
+    ref, ref_rej = _oracle(s, dys, dxs, 3.0, 3.0, 2)
+    got, got_rej = shift_clip_onepass(s, jnp.asarray(dys), jnp.asarray(dxs),
+                                      3.0, 3.0, 2, interpret=True)
+    _assert_close(got, ref, got_rej, ref_rej, max_flips=0)
 
 
 def test_onepass_single_frame_identity(rng):
@@ -106,21 +109,8 @@ def test_onepass_ragged_multiblock(rng):
     ref, ref_rej = _oracle(s, dys, dxs, 3.0, 3.0, 3)
     got, got_rej = shift_clip_onepass(s, jnp.asarray(dys), jnp.asarray(dxs),
                                       3.0, 3.0, 3, interpret=True)
+    assert got.shape == (131, 515)
     _assert_close(got, ref, got_rej, ref_rej)
-
-
-def test_onepass_prepadded_matches_autopad(rng):
-    s = _stack(rng, n=3, h=137, w=250, nan_frac=0.0)
-    dys = jnp.asarray([0.0, 2.5, -3.0], jnp.float32)
-    dxs = jnp.asarray([1.0, 0.0, -2.0], jnp.float32)
-    pre = pad_stack_aligned(jnp.asarray(s))
-    a, ra = shift_clip_onepass(pre, dys, dxs, 3.0, 3.0, 3,
-                               true_shape=(137, 250), interpret=True)
-    b, rb = shift_clip_onepass(jnp.asarray(s), dys, dxs, 3.0, 3.0, 3,
-                               interpret=True)
-    assert a.shape == (137, 250)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(ra) == int(rb)
 
 
 def test_onepass_tiny_image(rng):
@@ -137,10 +127,6 @@ def test_onepass_tiny_image(rng):
 def test_onepass_nan_inf_matches_unfused(rng):
     """Dead/hot pixels (NaN, inf) flow through the one-pass kernel
     exactly like the unfused shift+clip path (combine.rs NaN-safety)."""
-    from astroburst_tpu.stacking.combine import sigma_clip_core
-    from astroburst_tpu.ops.resample import shift_bicubic
-    import jax
-
     s = rng.normal(100, 3, (4, 64, 64)).astype(np.float32)
     s[1, 20:23, 30:33] = np.nan
     s[3, 5, 5] = np.inf
@@ -149,7 +135,7 @@ def test_onepass_nan_inf_matches_unfused(rng):
     dxs = jnp.asarray([0.0, -0.5, 1.0, 2.5], jnp.float32)
 
     got, grej = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 3,
-                                   off_max=8, interpret=True)
+                                   interpret=True)
     full = jax.vmap(shift_bicubic)(stack, dys, dxs)
     want, wrej = sigma_clip_core(full, 3.0, 3.0, 3)
     g, w = np.asarray(got), np.asarray(want)
@@ -163,16 +149,11 @@ def test_zero_shift_preserves_raw_pixels(rng):
     (align.rs:37-39): zero-shift frames contribute RAW pixels — dead
     pixels must not bleed NaN into their bicubic neighborhood, and the
     zero-shift stack must clip exactly like the unshifted stack."""
-    from astroburst_tpu.stacking.combine import sigma_clip_core
-    from astroburst_tpu.ops.resample import shift_bicubic
-    import jax
-
     s = rng.normal(100, 3, (4, 64, 64)).astype(np.float32)
     s[0, 40, 40] = np.nan  # dead pixel on the reference frame
     stack = jnp.asarray(s)
     z = jnp.zeros(4, jnp.float32)
-    got, _ = shift_clip_onepass(stack, z, z, 3.0, 3.0, 3, off_max=8,
-                                interpret=True)
+    got, _ = shift_clip_onepass(stack, z, z, 3.0, 3.0, 3, interpret=True)
     want, _ = sigma_clip_core(stack, 3.0, 3.0, 3)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=2e-4)
@@ -184,121 +165,115 @@ def test_zero_shift_preserves_raw_pixels(rng):
     np.testing.assert_array_equal(sb[m], s[0][m])
 
 
-def test_zero_frames_static_path_matches_runtime_select(rng):
-    """The compile-time zero_frames identity path (pipeline passes (0,)
-    for the self-aligned reference frame) == the runtime zero-shift
-    select, including NaN dead-pixel non-bleed (align.rs:37-39)."""
-    from astroburst_tpu.stacking.onepass_kernel import shift_clip_onepass
-
-    stack = rng.normal(100, 5, (4, 96, 130)).astype(np.float32)
-    stack[0, 10, 10] = np.nan
-    stack[2, 50, 60] = np.nan
-    dys = jnp.asarray([0.0, 1.3, -2.7, 0.4], jnp.float32)
-    dxs = jnp.asarray([0.0, -0.6, 2.2, -1.1], jnp.float32)
-    a = shift_clip_onepass(jnp.asarray(stack), dys, dxs, 3.0, 3.0, 3,
-                           interpret=True)
-    b = shift_clip_onepass(jnp.asarray(stack), dys, dxs, 3.0, 3.0, 3,
-                           interpret=True, zero_frames=(0,))
-    np.testing.assert_array_equal(np.asarray(a[0]), np.asarray(b[0]))
-    assert int(a[1]) == int(b[1])
-    z = jnp.zeros(4, jnp.float32)
-    c = shift_clip_onepass(jnp.asarray(stack), z, z, 3.0, 3.0, 3,
-                           interpret=True)
-    d = shift_clip_onepass(jnp.asarray(stack), z, z, 3.0, 3.0, 3,
-                           interpret=True, zero_frames=(0, 1, 2, 3))
-    np.testing.assert_array_equal(np.asarray(c[0]), np.asarray(d[0]))
-
-
-def test_runtime_zero_offset_parity_with_static_zero_frames(rng):
-    """A NON-listed frame whose measured offset is exactly zero must
-    still take the raw-pixel identity path (align.rs:37-39): with
-    zero_frames=(0,) the runtime select stays compiled in for frames
-    1..n-1, so a dead pixel on a duplicate frame must not NaN-bleed
-    (r3 review finding)."""
+def test_runtime_zero_offset_on_non_reference_frame(rng):
+    """A frame other than the reference whose measured offset is
+    exactly zero also takes the raw-pixel path (align.rs:37-39): a dead
+    pixel on a duplicate frame must not NaN-bleed."""
     s = rng.normal(100, 3, (4, 64, 64)).astype(np.float32)
     s[1, 40, 40] = np.nan  # dead pixel on a NON-reference frame
     stack = jnp.asarray(s)
-    z = jnp.zeros(4, jnp.float32)
-    got_static, _ = shift_clip_onepass(stack, z, z, 3.0, 3.0, 3,
-                                       off_max=8, interpret=True,
-                                       zero_frames=(0,))
-    got_runtime, _ = shift_clip_onepass(stack, z, z, 3.0, 3.0, 3,
-                                        off_max=8, interpret=True,
-                                        zero_frames=None)
-    np.testing.assert_array_equal(np.asarray(got_static),
-                                  np.asarray(got_runtime))
-    want, _ = sigma_clip_core(stack, 3.0, 3.0, 3)
-    np.testing.assert_allclose(np.asarray(got_static), np.asarray(want),
-                               atol=2e-4)
+    dys = jnp.asarray([0.0, 0.0, 0.5, 0.0], jnp.float32)
+    dxs = jnp.asarray([0.0, 0.0, -0.25, 0.0], jnp.float32)
+    got, _ = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 3,
+                                interpret=True)
+    full = jax.vmap(shift_bicubic)(stack, dys, dxs)
+    want, _ = sigma_clip_core(full, 3.0, 3.0, 3)
+    g = np.asarray(got)
+    assert np.isfinite(g).all()
+    np.testing.assert_allclose(g, np.asarray(want), atol=2e-4)
 
 
-def test_adaptive_envelope_branches_match():
-    """The small-envelope (off_max=6) cond branch must be bit-exact
-    with the wide variant for offsets inside it, and offsets outside
-    it must take the wide branch (results match adaptive=False)."""
-    import jax.numpy as jnp
-    from astroburst_tpu.stacking.onepass_kernel import shift_clip_onepass
-
-    rng = np.random.default_rng(4)
-    stack = jnp.asarray(rng.normal(100, 8, (5, 96, 300)).astype(np.float32))
-    for amp in (4.0, 11.0):  # inside / outside ADAPTIVE_OFF
-        dys = jnp.asarray(rng.uniform(-amp, amp, 5), jnp.float32)
-        dxs = jnp.asarray(rng.uniform(-amp, amp, 5), jnp.float32)
-        ca, ra = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 2,
-                                    interpret=True, adaptive=True)
-        cf, rf = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 2,
-                                    interpret=True, adaptive=False)
-        np.testing.assert_array_equal(np.asarray(ca), np.asarray(cf))
-        assert int(ra) == int(rf)
+@pytest.mark.parametrize("n", [2, 5, 9])
+def test_onepass_frame_counts_off_power_of_two(rng, n):
+    # the kernel holds next_pow2(n) sample slots per pixel; the unused
+    # slots must take no part in the clip
+    s = jnp.asarray(_stack(rng, n=n, h=40, w=70, nan_frac=0.01))
+    dys = rng.uniform(-3, 3, n).astype(np.float32)
+    dxs = rng.uniform(-3, 3, n).astype(np.float32)
+    ref, ref_rej = _oracle(s, dys, dxs, 3.0, 3.0, 4)
+    got, got_rej = shift_clip_onepass(s, jnp.asarray(dys), jnp.asarray(dxs),
+                                      3.0, 3.0, 4, interpret=True)
+    _assert_close(got, ref, got_rej, ref_rej)
 
 
-def test_adaptive_wide_block_branch_matches():
-    """The wide-block (56x384) small-envelope variant must be bit-exact
-    with the default-block form. The plane must pad to >= the (80, 640)
-    fetch window for the wide branch to engage (smaller planes fall
-    back to 64x256 -- also covered here via the 300-wide case above)."""
-    import jax.numpy as jnp
-    from astroburst_tpu.stacking.onepass_kernel import (
-        ADAPTIVE_BLOCK_H, ADAPTIVE_BLOCK_W, ADAPTIVE_OFF,
-        _shift_clip_onepass_padded, pad_stack_aligned, shift_clip_onepass)
-
-    rng = np.random.default_rng(9)
-    h, w = 120, 700  # pads to wp=768 >= 640: wide branch engages
-    stack = jnp.asarray(rng.normal(100, 8, (4, h, w)).astype(np.float32))
-    dys = jnp.asarray(rng.uniform(-4, 4, 4), jnp.float32)
-    dxs = jnp.asarray(rng.uniform(-4, 4, 4), jnp.float32)
-    ca, ra = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 2,
-                                interpret=True, adaptive=True)
-    padded = pad_stack_aligned(stack)
-    cw, rw = _shift_clip_onepass_padded(
-        padded, dys, dxs, h=h, w=w, sigma_low=3.0, sigma_high=3.0,
-        max_iter=2, off_max=ADAPTIVE_OFF, interpret=True,
-        block_h=ADAPTIVE_BLOCK_H, block_w=ADAPTIVE_BLOCK_W,
-        zero_frames=None)
-    cd, rd = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 2,
-                                interpret=True, adaptive=False)
-    # adaptive path == explicit wide call == default-block path
-    np.testing.assert_array_equal(np.asarray(ca), np.asarray(cw))
-    np.testing.assert_array_equal(np.asarray(ca), np.asarray(cd))
-    assert int(ra) == int(rw) == int(rd)
-
-
-@pytest.mark.parametrize("bh,bw", [(32, 1024), (40, 1024), (32, 1152)])
-def test_wide_short_block_geometries_match(rng, bh, bw):
-    """Round-5 sweep candidates: wide, short blocks cut the one-pass
-    kernel's HBM fetch amplification (the ~256-lane column halo is
-    pure alignment cost, so it amortizes over wider blocks: 2.38x at
-    56x384 -> 2.00-2.19x here) and fetch contiguous chunks 2-2.2x
-    longer. Parity vs the default geometry must be exact — the block
-    split never changes tap or clip semantics."""
-    s = jnp.asarray(_stack(rng, n=4, h=150, w=1400, nan_frac=0.01))
+@pytest.mark.parametrize("bh,bw,warps", [(1, 128, 4), (2, 64, 4),
+                                         (4, 32, 4)])
+def test_wide_short_block_geometries_match(rng, bh, bw, warps):
+    """The block split never changes tap or clip semantics: every
+    geometry is bit-exact with the default one."""
+    s = jnp.asarray(_stack(rng, n=4, h=50, w=150, nan_frac=0.01))
     dys = jnp.asarray(rng.uniform(-6, 6, 4), jnp.float32)
     dxs = jnp.asarray(rng.uniform(-6, 6, 4), jnp.float32)
     ref, ref_rej = shift_clip_onepass(s, dys, dxs, 3.0, 3.0, 3,
-                                      off_max=6, interpret=True,
-                                      adaptive=False)
-    got, got_rej = shift_clip_onepass(s, dys, dxs, 3.0, 3.0, 3,
-                                      off_max=6, block_h=bh, block_w=bw,
-                                      interpret=True, adaptive=False)
+                                      interpret=True)
+    got, got_rej = _shift_clip_call(s, dys, dxs, jnp.int32(0), 3.0, 3.0,
+                                    3, 0, 50, 50, True, block_h=bh,
+                                    block_w=bw, num_warps=warps)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
+    assert int(got_rej) == int(ref_rej)
+
+
+def test_onepass_rejects_more_frames_than_budget():
+    s = jnp.zeros((MAX_FRAMES + 1, 8, 8), jnp.float32)
+    z = jnp.zeros(MAX_FRAMES + 1, jnp.float32)
+    with pytest.raises(ValueError, match="register"):
+        shift_clip_onepass(s, z, z, interpret=True)
+
+
+@pytest.mark.parametrize("case", ["ties", "inf_padding", "all_equal"])
+def test_select_rank_matches_sort(rng, case):
+    """The kernel's sort-free rank select returns what a sort along
+    the frame axis puts at each rank."""
+    vals = rng.normal(0, 1, (8, 33)).astype(np.float32)
+    if case == "ties":
+        vals = np.round(vals * 2) / 2
+    elif case == "inf_padding":
+        vals[rng.random(vals.shape) < 0.3] = np.inf
+    else:
+        vals[:] = 1.25
+    srt = np.sort(vals, axis=0)
+    for r in range(8):
+        rank = np.full(33, r, np.float32)
+        got = np.asarray(_select_rank(jnp.asarray(vals), jnp.asarray(rank)))
+        np.testing.assert_array_equal(got, srt[r])
+
+
+@pytest.mark.parametrize("max_iter", [1, 5])
+def test_clip_body_matches_sigma_clip_core(rng, max_iter):
+    """The kernel's per-pixel clip loop, evaluated as plain jnp on a
+    [frames, pixels] block, against the XLA combine."""
+    s = rng.normal(100, 5, (7, 24, 16)).astype(np.float32)
+    s[rng.random(s.shape) < 0.05] = 4000.0
+    s[rng.random(s.shape) < 0.05] = np.nan
+    want, want_rej = sigma_clip_core(jnp.asarray(s), 2.5, 3.0, max_iter)
+    # one "block" per row of the image
+    got = []
+    got_rej = 0
+    for r in range(s.shape[1]):
+        c, rej = _clip_body(jnp.asarray(s[:, r, :]), 2.5, 3.0, max_iter)
+        got.append(np.asarray(c))
+        got_rej += int(jnp.sum(rej))
+    np.testing.assert_allclose(np.stack(got), np.asarray(want), atol=2e-4)
+    assert got_rej == int(want_rej)
+
+
+def test_shift_clip_takes_kernel_only_where_it_compiles(monkeypatch):
+    """One entry for the api and the pipeline: the kernel where the
+    Triton route compiles and the frames fit its budget, XLA otherwise.
+    The CPU has no Triton compiler."""
+    assert not combine.use_onepass_kernel(4)
+    monkeypatch.setattr(combine, "triton_available", lambda: True)
+    assert combine.use_onepass_kernel(4)
+    assert combine.use_onepass_kernel(MAX_FRAMES)
+    assert not combine.use_onepass_kernel(MAX_FRAMES + 1)
+
+
+def test_shift_clip_xla_path_matches_oracle(rng):
+    s = jnp.asarray(_stack(rng, n=5, h=48, w=60))
+    dys = rng.uniform(-4, 4, 5).astype(np.float32)
+    dxs = rng.uniform(-4, 4, 5).astype(np.float32)
+    ref, ref_rej = _oracle(s, dys, dxs, 3.0, 3.0, 3)
+    got, got_rej = combine.shift_clip(s, jnp.asarray(dys), jnp.asarray(dxs),
+                                      3.0, 3.0, 3)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
     assert int(got_rej) == int(ref_rej)

@@ -25,8 +25,7 @@ def test_sharded_stack_step_matches_single_device(rng):
     frames += 500.0 * np.exp(-((yy - 64) ** 2 + (xx - 32) ** 2) / 8.0)
     stack = jnp.asarray(frames)
 
-    single = jax.jit(lambda s: align_stack_stretch(s, max_iter=2,
-                                                   use_pallas=False))(stack)
+    single = jax.jit(lambda s: align_stack_stretch(s, max_iter=2))(stack)
 
     mesh = make_mesh(8, ("frames", "rows"), (4, 2))
     sharded_in = jax.device_put(
@@ -43,9 +42,9 @@ def test_sharded_stack_step_matches_single_device(rng):
 
 @pytest.mark.slow
 def test_sharded_onepass_matches_single_device(rng):
-    """The REAL hot path: one-pass Pallas shift+clip per row-shard
-    (shard_map + ppermute halos), vs the single-chip onepass kernel
-    and the unfused XLA path (interpret mode, exact on CPU)."""
+    """The hot path: one-pass shift+clip kernel per row-shard
+    (shard_map + ppermute halos) vs the single-device kernel (Pallas
+    interpreter on the CPU mesh)."""
     from astroburst_tpu.stacking.onepass_kernel import shift_clip_onepass
     from astroburst_tpu.parallel.pipeline import sharded_shift_clip
 
@@ -57,7 +56,7 @@ def test_sharded_onepass_matches_single_device(rng):
     dxs = jnp.asarray([0.0, -1.5, 2.75, -4.0, 5.5, 0.25], jnp.float32)
 
     single_c, single_r = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 3,
-                                            off_max=8, interpret=True)
+                                            interpret=True)
 
     for shape, axes in [((4, 2), ("frames", "rows")), ((8,), ("rows",))]:
         mesh = make_mesh(8, axes, shape)
@@ -72,14 +71,13 @@ def test_sharded_onepass_matches_single_device(rng):
 
 @pytest.mark.slow
 def test_sharded_stack_step_pallas_path(rng):
-    """Full sharded step with the Pallas combine stage enabled."""
+    """Full sharded step with the one-pass kernel as combine stage."""
     frames = rng.normal(100, 3, (8, 128, 64)).astype(np.float32)
     yy, xx = np.mgrid[0:128, 0:64]
     frames += 500.0 * np.exp(-((yy - 64) ** 2 + (xx - 32) ** 2) / 8.0)
     stack = jnp.asarray(frames)
 
-    single = jax.jit(lambda s: align_stack_stretch(
-        s, max_iter=2, use_pallas=False))(stack)
+    single = jax.jit(lambda s: align_stack_stretch(s, max_iter=2))(stack)
 
     mesh = make_mesh(8, ("frames", "rows"), (4, 2))
     sharded_in = jax.device_put(
@@ -190,13 +188,13 @@ def test_onepass_slab_mode_directly(rng):
     dys = jnp.asarray([0.0, 2.5, -3.0, 1.25], jnp.float32)
     dxs = jnp.asarray([0.0, -1.5, 4.0, -2.25], jnp.float32)
     full, full_rej = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 3,
-                                        off_max=8, interpret=True)
+                                        interpret=True)
     # middle band rows [24, 40) with real neighbor halos
     r0, r1 = 24, 40
     slab = stack[:, r0 - halo:r1 + halo]
     got, _ = shift_clip_onepass_slab(slab, dys, dxs, halo,
                                      jnp.int32(r0), h, 3.0, 3.0, 3,
-                                     off_max=8, interpret=True)
+                                     interpret=True)
     np.testing.assert_allclose(np.asarray(got),
                                np.asarray(full)[r0:r1], atol=2e-4)
 
@@ -204,7 +202,7 @@ def test_onepass_slab_mode_directly(rng):
 def test_reshard_frames_to_rows_all_to_all(rng):
     """The explicit frames→rows reshard: correct layout AND the
     compiled HLO contains a real all-to-all (no GSPMD
-    replicate-then-slice fallback) — VERDICT r2 weak #2."""
+    replicate-then-slice fallback)."""
     from astroburst_tpu.parallel.pipeline import reshard_frames_to_rows
 
     mesh = make_mesh(8, ("frames", "rows"), (4, 2))
@@ -235,7 +233,7 @@ def test_sharded_a2a_clip_matches_plain(rng):
     dxs = jnp.asarray(rng.uniform(-3, 3, 8), jnp.float32)
 
     ref, ref_rej = shift_clip_onepass(stack, dys, dxs, 3.0, 3.0, 2,
-                                      off_max=4, interpret=True)
+                                      interpret=True)
 
     mesh = make_mesh(8, ("frames", "rows"), (4, 2))
     sharded_in = jax.device_put(
@@ -330,11 +328,11 @@ def test_sharded_drizzle_matches_single(rng):
     d_xs = jnp.asarray([0.0, -0.2, 0.45, 0.7], jnp.float32)
     args = (2.0, 1.0, DrizzleKernel.SQUARE, 64, 72, 3.0, 3.0, 3)
     ref_img, ref_wgt, ref_rej = _drizzle_kernel_exact(
-        stack, d_ys, d_xs, *args, band_rows=8, use_pallas=False)
+        stack, d_ys, d_xs, *args, band_rows=8)
 
     mesh = make_mesh(8, ("rows",), (8,))
     img, wgt, rej = sharded_drizzle(mesh, stack, d_ys, d_xs, *args,
-                                    band_rows=8, use_pallas=False)
+                                    band_rows=8)
     np.testing.assert_allclose(np.asarray(img), np.asarray(ref_img),
                                atol=2e-5)
     np.testing.assert_allclose(np.asarray(wgt), np.asarray(ref_wgt),
@@ -342,36 +340,34 @@ def test_sharded_drizzle_matches_single(rng):
     assert int(rej) == int(ref_rej)
 
 
-@pytest.mark.slow
-def test_padded_pipeline_matches_unpadded(rng):
-    """align_stack_stretch on an ingest-padded stack (true_shape +
-    use_pallas, the headline TPU configuration, interpret mode) ==
-    the unpadded XLA path: the padded branch swaps in the Pallas
-    coarse box mean + frame-offset crop DMAs (coarse_kernel.py), which
-    must not move the recovered offsets or the combined plane."""
+def test_pipeline_recovers_offsets_wide_plane(rng):
+    """align_stack_stretch past the coarse cap on both axes: offsets of
+    the shifted frames (a zero-offset one among them), the combined
+    plane against the shift + clip at the recovered offsets, and the
+    u8 preview."""
+    from astroburst_tpu.stacking.combine import shift_clip_xla
+
     h, w = 640, 1152
     base = rng.normal(100, 3, (h, w)).astype(np.float32)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     for sy, sx in [(100, 200), (400, 800), (300, 500), (520, 950)]:
         base += 900.0 * np.exp(-((yy - sy) ** 2 + (xx - sx) ** 2) / 8.0)
-    frames = np.stack([base] + [
+    shifts = [(0, 0), (3, -5), (-7, 11), (0, 0)]
+    # independent noise per frame: duplicate frames would put the MAD
+    # at its 1e-10 floor, where clip decisions hang on the last ulp
+    stack = jnp.asarray(np.stack([
         np.roll(np.roll(base, dy, 0), dx, 1)
-        for dy, dx in [(3, -5), (-7, 11), (0, 0)]])
-    stack = jnp.asarray(frames)
-
-    from astroburst_tpu.stacking.onepass_kernel import pad_stack_aligned
-    padded = pad_stack_aligned(stack)
-    got = jax.jit(lambda s: align_stack_stretch(
-        s, max_iter=2, use_pallas=True, true_shape=(h, w),
-        interpret=True))(padded)
-    want = jax.jit(lambda s: align_stack_stretch(
-        s, max_iter=2, use_pallas=False))(stack)
-
-    np.testing.assert_allclose(np.asarray(got["offsets"]),
-                               np.asarray(want["offsets"]), atol=0.05)
-    # Pallas vs XLA clip: borderline rejections flip with f32 rounding
-    # (same tolerance class as test_onepass_kernel._assert_close)
-    d = np.abs(np.asarray(got["combined"]) - np.asarray(want["combined"]))
-    assert (d > 6e-3).sum() <= 3, f"max |d|={d.max()}"
-    np.testing.assert_allclose(np.asarray(got["stf"]),
-                               np.asarray(want["stf"]), atol=1e-4)
+        + rng.normal(0, 1, (h, w)).astype(np.float32)
+        for dy, dx in shifts]))
+    out = jax.jit(lambda s: align_stack_stretch(s, max_iter=2))(stack)
+    np.testing.assert_allclose(np.asarray(out["offsets"]),
+                               np.asarray(shifts, np.float32), atol=0.05)
+    want, want_rej = shift_clip_xla(stack, out["offsets"][:, 0],
+                                    out["offsets"][:, 1], 3.0, 3.0, 2)
+    # one fused program vs two: f32 rounding differs in the last bits,
+    # and borderline clip decisions of a 4-frame stack may flip
+    d = np.abs(np.asarray(out["combined"]) - np.asarray(want))
+    assert (d > 5e-3).mean() < 1e-4, f"max |d|={d.max()}"
+    assert abs(int(out["rejected"]) - int(want_rej)) <= 50
+    assert out["preview"].dtype == jnp.uint8
+    assert out["preview"].shape == (h, w)

@@ -144,66 +144,60 @@ def test_stack_pc_matches_per_frame(rng):
         assert abs(float(dxs[i]) - sx) < 0.5
 
 
-def test_refine_dma_crop_matches_slice(rng):
-    """The Pallas DMA refine-crop path (ops/crop_kernel.py) is
-    bit-identical to the dynamic_slice path — the crops are the same
-    bytes, only the copy mechanism differs."""
+def _star_plane(rng, h, w, spots):
+    base = rng.normal(100, 3, (h, w)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for sy, sx in spots:
+        base += 900.0 * np.exp(-((yy - sy) ** 2 + (xx - sx) ** 2) / 8.0)
+    return base
+
+
+def test_stack_align_recovers_offsets_wide_plane(rng):
+    """Coarse-to-fine on a plane past the coarse cap on both axes, with
+    a zero-offset frame among the targets."""
     from astroburst_tpu.alignment.phase_correlation import (
         phase_correlate_stack_traced)
 
-    h, w = 640, 1152
-    base = rng.normal(100, 3, (h, w)).astype(np.float32)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    for sy, sx in [(100, 200), (400, 800), (300, 500), (520, 950)]:
-        base += 900.0 * np.exp(-((yy - sy) ** 2 + (xx - sx) ** 2) / 8.0)
+    base = _star_plane(rng, 640, 1152, [(100, 200), (400, 800),
+                                        (300, 500), (520, 950)])
+    shifts = [(3, -5), (-7, 11), (0, 0)]
     tgts = np.stack([np.roll(np.roll(base, dy, 0), dx, 1)
-                     for dy, dx in [(3, -5), (-7, 11), (0, 0)]])
-    ref = jnp.asarray(base)
-    T = jnp.asarray(tgts)
-    a = phase_correlate_stack_traced(ref, T, crop_mode="slice")
-    b = phase_correlate_stack_traced(ref, T, crop_mode="interpret")
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    assert float(a[0][0]) == pytest.approx(3.0, abs=0.05)
-    assert float(a[1][1]) == pytest.approx(11.0, abs=0.05)
+                     for dy, dx in shifts])
+    dys, dxs, confs = phase_correlate_stack_traced(jnp.asarray(base),
+                                                   jnp.asarray(tgts))
+    for i, (sy, sx) in enumerate(shifts):
+        assert float(dys[i]) == pytest.approx(sy, abs=0.05)
+        assert float(dxs[i]) == pytest.approx(sx, abs=0.05)
+        assert float(confs[i]) > 2.0
 
 
-def test_gather_crops_kernel_parity(rng):
-    """gather_crops == per-frame dynamic_slice for aligned origins,
-    including edge-touching windows."""
-    from astroburst_tpu.ops.crop_kernel import gather_crops
+def test_stack_align_zeroes_constant_frame(rng):
+    """A constant target gets offset 0 and confidence 0
+    (phase_correlation.rs:143-161), the others are unaffected."""
+    from astroburst_tpu.alignment.phase_correlation import (
+        phase_correlate_stack_traced)
 
-    stack = jnp.asarray(rng.normal(0, 1, (5, 640, 1024))
-                        .astype(np.float32))
-    y0s = jnp.asarray([0, 8, 64, 128, 120], jnp.int32)
-    x0s = jnp.asarray([0, 128, 256, 512, 384], jnp.int32)
-    got = gather_crops(stack, y0s, x0s, 512, 512, interpret=True)
-    want = jnp.stack([
-        jax.lax.dynamic_slice(stack[k], (y0s[k], x0s[k]), (512, 512))
-        for k in range(5)])
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_gather_crops_rejects_unaligned_size():
-    from astroburst_tpu.ops.crop_kernel import gather_crops
-
-    stack = jnp.zeros((2, 64, 256), jnp.float32)
-    with pytest.raises(ValueError, match="aligned"):
-        gather_crops(stack, jnp.zeros(2, jnp.int32),
-                     jnp.zeros(2, jnp.int32), 60, 128, interpret=True)
+    base = _star_plane(rng, 640, 1152, [(100, 200), (400, 800),
+                                        (300, 500)])
+    tgts = np.stack([np.roll(np.roll(base, 3, 0), -5, 1),
+                     np.full(base.shape, 7.0, np.float32)])
+    dys, dxs, confs = phase_correlate_stack_traced(jnp.asarray(base),
+                                                   jnp.asarray(tgts))
+    assert float(dys[0]) == pytest.approx(3.0, abs=0.05)
+    assert float(dxs[0]) == pytest.approx(-5.0, abs=0.05)
+    assert float(dys[1]) == 0.0 and float(dxs[1]) == 0.0
+    assert float(confs[1]) == 0.0
 
 
 def test_coarse_large_box_plane_recovers_offsets():
     """Tall planes (coarse box spanning >=5 rows) must still recover
-    known integer offsets through coarse→refine. Regression guard for
-    the coarse path at shapes the small unit planes never hit (an r4
-    experiment hid an import error exactly here)."""
-    import jax.numpy as jnp
+    known integer offsets through coarse→refine, at shapes the small
+    unit planes never hit."""
     from astroburst_tpu.alignment.phase_correlation import (
-        _phase_correlate_stack_impl)
+        phase_correlate_stack_traced)
 
     rng = np.random.default_rng(8)
-    h, w = 2560, 640  # by = ceil(2560/512) = 5 -> stride path
+    h, w = 2560, 640  # by = ceil(2560/512) = 5
     base = rng.normal(100, 4, (h, w)).astype(np.float32)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     for _ in range(40):
@@ -212,194 +206,53 @@ def test_coarse_large_box_plane_recovers_offsets():
             -((yy - sy) ** 2 + (xx - sx) ** 2) / 4.0)
     shifts = [(3, -2), (-5, 4), (0, 0)]
     tgts = np.stack([np.roll(base, s, (0, 1)) for s in shifts])
-    dys, dxs, confs = _phase_correlate_stack_impl(
-        jnp.asarray(base), jnp.asarray(tgts), "slice")
+    dys, dxs, confs = phase_correlate_stack_traced(
+        jnp.asarray(base), jnp.asarray(tgts))
     for i, (sy, sx) in enumerate(shifts):
         assert abs(float(dys[i]) - sy) < 0.35, (i, float(dys[i]), sy)
         assert abs(float(dxs[i]) - sx) < 0.35, (i, float(dxs[i]), sx)
 
 
-def test_coarse_kernel_matches_box_mean(rng):
-    """Pallas blockwise coarse downsample == exact box mean over the
-    true region, to bf16 input rounding (coarse_kernel.py). Shape
-    chosen so the padded grid over-reads past Hp (the NaN-safe row
-    mask) and the col pad carries weight 0."""
-    from astroburst_tpu.alignment.coarse_kernel import (
-        coarse_downsample_stack, plan)
-
-    n, h, w = 3, 850, 1200
-    hp, wp = 856, 1280
-    frames = rng.normal(100, 10, (n, h, w)).astype(np.float32)
-    stack = jnp.zeros((n, hp, wp), jnp.float32).at[:, :h, :w].set(frames)
-    p = plan(n, hp, wp, h, w, 512)
-    assert p is not None and p[-1], "plan should need the row mask here"
-    ds, by, bx = coarse_downsample_stack(stack, (h, w), 512,
-                                         interpret=True)
-    assert (by, bx) == (2, 3)
-    ds_r, ds_c = h // by, w // bx
-    assert ds.shape == (n, ds_r, ds_c)
-    want = frames[:, :ds_r * by, :ds_c * bx].reshape(
-        n, ds_r, by, ds_c, bx).mean(axis=(2, 4))
-    np.testing.assert_allclose(np.asarray(ds), want, rtol=5e-3, atol=0.6)
-
-
-def test_coarse_kernel_plan_rejects_small_and_wide():
-    from astroburst_tpu.alignment.coarse_kernel import plan
-
-    # no downsample needed at all
-    assert plan(2, 256, 256, 250, 250, 512) is None
-    # ds_c below the 128-lane floor (narrow tall plane)
-    assert plan(2, 600, 128, 598, 100, 512) is None
-    # mosaic-wide plane: resident MC alone would blow VMEM
-    assert plan(2, 12800, 25088, 12792, 25000, 512) is None
-
-
-def test_gather_crops_frame_offset(rng):
-    """frame0=k crops target frames straight out of the padded stack
-    (the padded align path's contract)."""
-    from astroburst_tpu.ops.crop_kernel import gather_crops
-
-    stack = jnp.asarray(rng.normal(0, 1, (4, 640, 1024))
-                        .astype(np.float32))
-    y0s = jnp.asarray([8, 64, 0], jnp.int32)
-    x0s = jnp.asarray([128, 0, 256], jnp.int32)
-    got = gather_crops(stack, y0s, x0s, 512, 512, interpret=True,
-                       frame0=1)
-    want = jnp.stack([
-        jax.lax.dynamic_slice(stack[k + 1], (y0s[k], x0s[k]), (512, 512))
-        for k in range(3)])
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-def test_padded_stack_align_matches_traced(rng):
-    """phase_correlate_stack_padded on an ingest-padded stack recovers
-    the same offsets as the view-based traced path (the coarse bf16
-    rounding only seeds the tile-rounded refine origin, so refine
-    output matches to sub-pixel)."""
+@pytest.mark.parametrize("shape,boxes", [
+    ((3, 850, 1200), (2, 3)),     # both axes boxed, ragged remainders
+    ((2, 400, 1200), (1, 3)),     # wide-short: column boxes only
+    ((2, 1200, 400), (3, 1)),     # tall-narrow: row boxes only
+    ((1, 1030, 2060), (3, 5)),    # boxes leave a remainder on both axes
+])
+def test_coarse_box_downsample_matches_numpy(rng, shape, boxes):
+    """The coarse pass's box mean (a reshape + mean) == the numpy box
+    mean over the largest divisible region, NaN propagating."""
     from astroburst_tpu.alignment.phase_correlation import (
-        phase_correlate_stack_padded, phase_correlate_stack_traced)
+        COARSE_MAX_DIM, _coarse_box_downsample)
+
+    frames = rng.normal(50, 5, shape).astype(np.float32)
+    frames[0, 3, 4] = np.nan
+    ds, by, bx = _coarse_box_downsample(jnp.asarray(frames),
+                                        COARSE_MAX_DIM)
+    assert (by, bx) == boxes
+    n, h, w = shape
+    r, c = h // by, w // bx
+    want = frames[:, :r * by, :c * bx].astype(np.float64).reshape(
+        n, r, by, c, bx).mean(axis=(2, 4))
+    got = np.asarray(ds)
+    assert got.shape == (n, r, c) and r <= 512 and c <= 512
+    assert np.isnan(got[0, 3 // by, 4 // bx])
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cy,cx", [(320, 576), (3, 5), (639, 1151)])
+def test_refine_crop_matches_numpy(rng, cy, cx):
+    """The refine crop is a dynamic_slice centered on (cy, cx),
+    clamped to the plane — checked against numpy slicing at interior
+    and both edge corners."""
+    from astroburst_tpu.alignment.phase_correlation import (
+        REFINE_CROP_SIZE, _dynamic_crop)
 
     h, w = 640, 1152
-    base = rng.normal(100, 3, (h, w)).astype(np.float32)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    for sy, sx in [(100, 200), (400, 800), (300, 500), (520, 950)]:
-        base += 900.0 * np.exp(-((yy - sy) ** 2 + (xx - sx) ** 2) / 8.0)
-    tgts = np.stack([np.roll(np.roll(base, dy, 0), dx, 1)
-                     for dy, dx in [(3, -5), (-7, 11), (0, 0)]])
-    stack = np.concatenate([base[None], tgts])
-    padded = jnp.zeros((4, h + 8, w + 128), jnp.float32)
-    padded = padded.at[:, :h, :w].set(stack)
-
-    a = phase_correlate_stack_traced(jnp.asarray(base), jnp.asarray(tgts),
-                                     crop_mode="slice")
-    b = phase_correlate_stack_padded(padded, (h, w),
-                                     crop_mode="interpret",
-                                     interpret=True)
-    for dy_want, got in zip([3.0, -7.0, 0.0], np.asarray(b[0])):
-        assert got == pytest.approx(dy_want, abs=0.05)
-    for dx_want, got in zip([-5.0, 11.0, 0.0], np.asarray(b[1])):
-        assert got == pytest.approx(dx_want, abs=0.05)
-    np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]),
-                               atol=0.02)
-    np.testing.assert_allclose(np.asarray(a[1]), np.asarray(b[1]),
-                               atol=0.02)
-
-
-def test_coarse_kernel_folded_stats(rng):
-    """with_stats=True: per-frame finite min/max/count over the TRUE
-    region only (pad rows/cols and NaN excluded), matching the
-    _is_constant_or_zero reduce it replaces."""
-    from astroburst_tpu.alignment.coarse_kernel import (
-        coarse_downsample_stack)
-
-    n, h, w = 3, 850, 1200
-    hp, wp = 856, 1280
-    frames = rng.normal(100, 10, (n, h, w)).astype(np.float32)
-    frames[0, 5, 7] = np.nan
-    frames[0, 100:110, 50:60] = np.inf
-    frames[2] = 42.0                       # constant frame
-    stack = jnp.full((n, hp, wp), np.nan, jnp.float32)  # poison pad
-    stack = stack.at[:, :h, :w].set(frames)
-    # pad content must not leak into stats, but the coarse matmul path
-    # multiplies pad cols by 0 weights, where 0*NaN=NaN — match the
-    # ingest contract (pad_stack_aligned zero-fills) for the ds check
-    stack_clean = jnp.zeros((n, hp, wp), jnp.float32).at[:, :h, :w].set(
-        frames)
-
-    ds, by, bx, mn, mx, cnt = coarse_downsample_stack(
-        stack_clean, (h, w), 512, interpret=True, with_stats=True)
-    fin = np.isfinite(frames)
-    np.testing.assert_allclose(
-        np.asarray(cnt), fin.sum(axis=(1, 2)).astype(np.float32))
-    for k in range(n):
-        np.testing.assert_allclose(np.asarray(mn)[k],
-                                   frames[k][fin[k]].min(), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(mx)[k],
-                                   frames[k][fin[k]].max(), rtol=1e-6)
-    # NaN-poisoned pad: stats still exact (region-masked)
-    _, _, _, mn2, mx2, cnt2 = coarse_downsample_stack(
-        stack, (h, w), 512, interpret=True, with_stats=True)
-    np.testing.assert_allclose(np.asarray(cnt2), np.asarray(cnt))
-    np.testing.assert_allclose(np.asarray(mn2), np.asarray(mn))
-    np.testing.assert_allclose(np.asarray(mx2), np.asarray(mx))
-
-
-def test_padded_align_zeroes_constant_frame(rng):
-    """A constant target through the padded path gets offset 0 via the
-    kernel-folded _is_constant_or_zero gate."""
-    from astroburst_tpu.alignment.phase_correlation import (
-        phase_correlate_stack_padded)
-
-    h, w = 640, 1152
-    base = rng.normal(100, 3, (h, w)).astype(np.float32)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
-    for sy, sx in [(100, 200), (400, 800), (300, 500)]:
-        base += 900.0 * np.exp(-((yy - sy) ** 2 + (xx - sx) ** 2) / 8.0)
-    tgts = np.stack([np.roll(np.roll(base, 3, 0), -5, 1),
-                     np.full((h, w), 7.0, np.float32)])
-    stack = np.concatenate([base[None], tgts])
-    padded = jnp.zeros((3, h + 8, w + 128), jnp.float32)
-    padded = padded.at[:, :h, :w].set(stack)
-
-    dys, dxs, confs = phase_correlate_stack_padded(
-        padded, (h, w), crop_mode="interpret", interpret=True)
-    assert float(dys[0]) == pytest.approx(3.0, abs=0.05)
-    assert float(dxs[0]) == pytest.approx(-5.0, abs=0.05)
-    assert float(dys[1]) == 0.0 and float(dxs[1]) == 0.0
-    assert float(confs[1]) == 0.0
-
-
-def test_coarse_kernel_single_axis_boxes(rng):
-    """Degenerate box grids: wide-short planes (by=1, col boxes only)
-    and tall-narrow planes (bx=1, row boxes only) must stay exact —
-    the 0/1 band matrices degenerate to identity selections on the
-    unit axis."""
-    from astroburst_tpu.alignment.coarse_kernel import (
-        coarse_downsample_stack, plan)
-
-    # wide-short: h <= 512 < w → by=1, bx=3
-    n, h, w = 2, 400, 1200
-    hp, wp = 400, 1280
-    frames = rng.normal(50, 5, (n, h, w)).astype(np.float32)
-    stack = jnp.zeros((n, hp, wp), jnp.float32).at[:, :h, :w].set(frames)
-    assert plan(n, hp, wp, h, w, 512) is not None
-    ds, by, bx = coarse_downsample_stack(stack, (h, w), 512,
-                                         interpret=True)
-    assert (by, bx) == (1, 3)
-    want = frames[:, :, :400 * 3].reshape(n, 400, 1, 400, 3).mean(
-        axis=(2, 4))
-    np.testing.assert_allclose(np.asarray(ds), want, rtol=5e-3, atol=0.3)
-
-    # tall-narrow: w <= 512 < h → by=3, bx=1
-    h2, w2 = 1200, 400
-    hp2, wp2 = 1200, 512
-    frames2 = rng.normal(50, 5, (n, h2, w2)).astype(np.float32)
-    stack2 = jnp.zeros((n, hp2, wp2), jnp.float32).at[:, :h2, :w2].set(
-        frames2)
-    ds2, by2, bx2 = coarse_downsample_stack(stack2, (h2, w2), 512,
-                                            interpret=True)
-    assert (by2, bx2) == (3, 1)
-    want2 = frames2[:, :400 * 3].reshape(n, 400, 3, 400, 1).mean(
-        axis=(2, 4))
-    np.testing.assert_allclose(np.asarray(ds2), want2, rtol=5e-3,
-                               atol=0.3)
+    img = rng.normal(0, 1, (h, w)).astype(np.float32)
+    got = np.asarray(_dynamic_crop(jnp.asarray(img), jnp.int32(cy),
+                                   jnp.int32(cx), REFINE_CROP_SIZE))
+    size = REFINE_CROP_SIZE
+    y0 = min(max(cy - size // 2, 0), h - size)
+    x0 = min(max(cx - size // 2, 0), w - size)
+    np.testing.assert_array_equal(got, img[y0:y0 + size, x0:x0 + size])

@@ -63,3 +63,18 @@ def test_save_rgb_png_16bit_no_longer_downgrades(rng, tmp_path):
     assert back.dtype == np.uint16
     np.testing.assert_array_equal(back[:, :, 2], r)
     np.testing.assert_array_equal(back[:, :, 0], b)
+
+
+@pytest.mark.parametrize("shape", [(21, 33), (17, 19, 3)])
+def test_decoder_oracle_reads_filtered_scanlines(rng, shape):
+    """The spec decoder oracle undoes every scanline filter an encoder
+    may choose (cv2/libpng picks adaptive filters per row)."""
+    from tests.reference_impl import ref_decode_png
+    img = (rng.random(shape) * 255).astype(np.uint8)
+    img[: shape[0] // 2] = np.arange(shape[1], dtype=np.uint8)[
+        :, None] if len(shape) == 3 else np.arange(shape[1], dtype=np.uint8)
+    ok, buf = cv2.imencode(".png", img)
+    assert ok
+    back = ref_decode_png(buf.tobytes())
+    np.testing.assert_array_equal(back[..., ::-1] if len(shape) == 3
+                                  else back, img)
